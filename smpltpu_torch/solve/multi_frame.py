@@ -1,0 +1,414 @@
+"""Multi-frame bundle adjustment: shared shape + per-frame pose + temporal
+smoothness (port of ``smpltpu/solve/multi_frame.py``).
+
+Same objective, step and stopping rules as the reference module (its
+docstring gives the problem structure and the freeze-scale gauge fix); what
+changes is the batching. The fitter is written for a leading window axis
+W, which takes the place of ``jax.vmap`` (a single solve is W = 1), and
+the convergence-exit ``lax.while_loop`` becomes a masked Python loop:
+
+  * every window steps on every trip; a converged window keeps its state
+    through the ``do_move`` / ``converged`` selects of the step, so its
+    trajectory does not depend on how many trips its batch runs;
+  * ``iters_run`` counts the trips a window was still unconverged;
+  * the loop ends when every window has converged or at ``max_iters``.
+    ``converged.all()`` is read on the host once per trip (one device sync
+    per LM iteration).
+
+The arrowhead GN system of each step goes to ``linear="pcg"`` (the plain
+PyTorch PCG loop, any dtype and device) or ``linear="pcg_kernel"`` (K1,
+the CUDA kernel of :mod:`smpltpu_torch.ops.cg`, for float32 CUDA tensors;
+the plain loop on the CPU). Both run the same recursion. The reference's
+exact solvers ("tridiag", "cr") and "pcg_block" are not ported yet
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as tnf
+
+from smpltpu.constants import HUBER_DELTA, SCALE_MAX, SCALE_MIN
+from smpltpu_torch.energy.jacobian import keypoint_residuals_and_jacobian
+from smpltpu_torch.energy.params import frame_param_layout
+from smpltpu_torch.energy.reproj import Camera, SkeletonSpec, keypoint_residuals
+from smpltpu_torch.energy.temporal import temporal_mask
+from smpltpu_torch.ops import cg as cg_ops
+from smpltpu_torch.ops.cg import window_dot
+from smpltpu_torch.solve.lm import (
+    _huber_rho,
+    huber_correct_weight_and_slope,
+)
+
+
+class MultiFrameConfig(NamedTuple):
+    """The reference's config under the same names, less ``cg_unroll``
+    (XLA loop unrolling) and ``jacobian`` (only the analytic Jacobian is
+    ported)."""
+
+    beta_pose: float
+    beta_shape: float
+    lambda_temporal: float
+    max_iters: int
+    freeze_scale: bool = True
+    huber_delta: float = HUBER_DELTA
+    init_radius: float = 1e4
+    min_rel_decrease: float = 1e-3
+    ftol: float = 1e-6
+    diag_min: float = 1e-6
+    diag_max: float = 1e32
+    diag_eps: float = 1e-8
+    dogleg: bool = True
+    dogleg_init_radius: float = 1.0
+    linear: str = "tridiag"
+    cg_iters: int = 64
+    cg_rtol: float = 0.0
+    fused_cost: bool = False
+
+
+class MultiFrameState(NamedTuple):
+    params: torch.Tensor            # (W, F, P)
+    shape: torch.Tensor             # (W, nS)
+    radius: torch.Tensor            # (W,)
+    decrease_factor: torch.Tensor   # (W,)
+    cost: torch.Tensor              # (W,)
+    converged: torch.Tensor         # (W,) bool
+    n_accepted: torch.Tensor        # (W,) int32
+    iters_run: torch.Tensor         # (W,) int32
+
+
+class MultiFrameResult(NamedTuple):
+    """MultiFrameState plus the per-iteration cost trace."""
+
+    params: torch.Tensor
+    shape: torch.Tensor
+    radius: torch.Tensor
+    decrease_factor: torch.Tensor
+    cost: torch.Tensor
+    converged: torch.Tensor
+    n_accepted: torch.Tensor
+    iters_run: torch.Tensor
+    cost_history: torch.Tensor      # (W, max_iters)
+
+
+def _per_window(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(W,) -> broadcastable against ``like`` (W, ...)."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
+def corrected_frame_assembly(p_f, w, kp_f, r0_f, cam: Camera,
+                             spec: SkeletonSpec, huber_delta: float,
+                             with_cost: bool = False):
+    """Normal-equation pieces of the Huber-CORRECTED keypoint residuals
+    c = sqrt(rho(s)/s) r of every frame, batched over leading axes:
+    p_f (..., P), w (..., nS), kp_f (..., K, 4), r0_f (..., 3, 3).
+    Returns (J_p^T J_p, J_p^T J_w, J_w^T J_w, J_p^T c, J_w^T c[, ||c||^2]).
+
+    The analytic Jacobian is corrected per 2-row block by the rank-1 rule
+    J_c = hw J + 2 hw'(s) b (b^T J), with hw' in closed form
+    (solve/lm.py::huber_correct_weight_and_slope)."""
+    r_raw, jp_raw, jw_raw = keypoint_residuals_and_jacobian(
+        p_f, w, kp_f, cam, spec, r0_f)
+    blocks = r_raw.unflatten(-1, (-1, 2))                         # (..., K, 2)
+    s = torch.sum(blocks * blocks, dim=-1)                        # (..., K)
+    hw, hwp = huber_correct_weight_and_slope(s, huber_delta)
+    jp_b = jp_raw.unflatten(-2, (-1, 2))                          # (..., K, 2, P)
+    jw_b = jw_raw.unflatten(-2, (-1, 2))
+    btj_p = torch.einsum("...kc,...kcp->...kp", blocks, jp_b)
+    btj_w = torch.einsum("...kc,...kcs->...ks", blocks, jw_b)
+    hw3, hwp3 = hw[..., None, None], 2.0 * hwp[..., None, None]
+    jp = (hw3 * jp_b + hwp3 * blocks[..., None]
+          * btj_p[..., None, :]).flatten(-3, -2)                  # (..., 2K, P)
+    jw = (hw3 * jw_b + hwp3 * blocks[..., None]
+          * btj_w[..., None, :]).flatten(-3, -2)                  # (..., 2K, nS)
+    r = (blocks * hw[..., None]).flatten(-2)                      # (..., 2K)
+    jp_t, jw_t = jp.transpose(-1, -2), jw.transpose(-1, -2)
+    out = (jp_t @ jp, jp_t @ jw, jw_t @ jw,
+           (jp_t @ r[..., None])[..., 0], (jw_t @ r[..., None])[..., 0])
+    if with_cost:
+        # ||c||^2 == rho(s) by construction: the Huber keypoint cost
+        out = out + (torch.sum(hw * hw * s, dim=-1),)
+    return out
+
+
+def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
+                       n_shapes: int, *, device, dtype):
+    """Return fit(params0 (W, F, P), shape0 (W, nS) or (nS,), kp
+    (W, F, K, 4), r0 (W, F, 3, 3), frame_valid (W, F) or None) ->
+    MultiFrameResult with a leading window axis. Unbatched inputs
+    (params0 (F, P), kp (F, K, 4), ...) solve one window and return
+    unbatched fields, like the reference's fitter.
+
+    frame_valid masks padding frames: their keypoints must already be
+    masked; here it also cuts the temporal coupling across the padding."""
+    if cfg.linear in ("tridiag", "cr", "pcg_block"):
+        raise NotImplementedError(
+            f"linear={cfg.linear!r} is not ported yet (ROADMAP.md); use "
+            "'pcg' or 'pcg_kernel'")
+    if cfg.linear not in ("pcg", "pcg_kernel"):
+        raise ValueError(f"unknown linear solver {cfg.linear!r} "
+                         "(tridiag | cr | pcg | pcg_block | pcg_kernel)")
+
+    n_joints = len(spec.parents)
+    lay = frame_param_layout(n_joints)
+    p_dim = lay["total"]
+    aa0, aa1 = lay["joint_aa"]
+
+    def scalar(v):
+        return torch.tensor(v, dtype=dtype, device=device)
+    bp2 = scalar(cfg.beta_pose) * scalar(cfg.beta_pose)
+    bs2 = scalar(cfg.beta_shape) * scalar(cfg.beta_shape)
+    lam = scalar(cfg.lambda_temporal)
+    tmask = temporal_mask(n_joints, device=device, dtype=dtype)   # (P,)
+    tm2_diag = torch.diag(tmask * tmask)
+    psel = torch.zeros(p_dim, dtype=dtype, device=device)
+    psel[aa0:aa1] = 1.0
+    bp2_diag = bp2 * torch.diag(psel)
+    eye_s = torch.eye(n_shapes, dtype=dtype, device=device)
+    keep = torch.ones(p_dim, dtype=dtype, device=device)          # freeze mask
+    keep[0] = 0.0
+    keep2 = keep[:, None] * keep[None, :]
+    scale_diag = torch.diag(1.0 - keep)
+
+    def prior_and_temporal_cost(params, w, pair_w):
+        c_pose = bp2 * torch.sum(params[..., aa0:aa1] ** 2, dim=(-2, -1))
+        c_shape = bs2 * torch.sum(w * w, dim=-1)
+        diff = (params[:, :-1] - params[:, 1:]) * tmask
+        c_temp = torch.sum((lam * pair_w)[..., None] ** 2 * diff * diff,
+                           dim=(-2, -1))
+        return c_pose + c_shape + c_temp
+
+    def cost_fn(params, w, kp, r0, pair_w):
+        r = keypoint_residuals(params, w[:, None, :], kp, cam, spec, r0)
+        s = torch.sum(r.unflatten(-1, (-1, 2)) ** 2, dim=-1)
+        c_kp = torch.sum(_huber_rho(s, cfg.huber_delta), dim=(-2, -1))
+        return 0.5 * (c_kp + prior_and_temporal_cost(params, w, pair_w))
+
+    def normal_eq(params, w, kp, r0, pair_w, with_cost=False):
+        """Gradient and Hessian pieces of the weighted problem, per window;
+        with_cost=True also returns the objective at (params, w), the
+        keypoint part read off the corrected residuals."""
+        pieces = corrected_frame_assembly(params, w[:, None, :], kp, r0, cam,
+                                          spec, cfg.huber_delta, with_cost)
+        h_pp, b_pw, h_ww, g_p, g_w = pieces[:5]
+        cost = None
+        if with_cost:
+            cost = 0.5 * (torch.sum(pieces[5], dim=-1)
+                          + prior_and_temporal_cost(params, w, pair_w))
+
+        # pose prior (linear)
+        h_pp = h_pp + bp2_diag
+        g_p = g_p + (bp2 * psel) * params
+        # temporal (linear): stencil on the block-tridiagonal
+        lam_pair = (lam * pair_w) ** 2                            # (W, F-1)
+        deg = tnf.pad(lam_pair, (0, 1)) + tnf.pad(lam_pair, (1, 0))
+        h_pp = h_pp + deg[..., None, None] * tm2_diag
+        off_scale = -lam_pair                                     # E_f scale
+        lam_diff = lam_pair[..., None] * ((params[:, :-1] - params[:, 1:])
+                                          * (tmask * tmask))
+        g_p = (g_p + tnf.pad(lam_diff, (0, 0, 0, 1))
+               + tnf.pad(-lam_diff, (0, 0, 1, 0)))
+        # shape prior
+        c_ww = torch.sum(h_ww, dim=1) + bs2 * eye_s
+        g_w_tot = torch.sum(g_w, dim=1) + bs2 * w
+        if cfg.freeze_scale:
+            h_pp = h_pp * keep2 + scale_diag
+            b_pw = b_pw * keep[:, None]
+            g_p = g_p * keep
+        asm = (h_pp, off_scale, b_pw, c_ww, g_p, g_w_tot)
+        return (asm, cost) if with_cost else asm
+
+    def arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w):
+        args = (d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w)
+        if cfg.linear == "pcg":
+            return cg_ops.arrow_pcg_torch(*args, iters=cfg.cg_iters,
+                                          rtol=cfg.cg_rtol)
+        # looked up on each call, so a caller may wrap the kernel entry
+        return cg_ops.arrow_pcg(*(a.contiguous() for a in args),
+                                iters=cfg.cg_iters, rtol=cfg.cg_rtol)
+
+    def step(state: MultiFrameState, kp, r0, pair_w, asm):
+        """One trust-region iteration from the assembly ``asm`` at
+        state.params. Returns (new state, assembly at the new state or
+        None, per-window cost)."""
+        params, w = state.params, state.shape
+        h_pp, off_scale, b_pw, c_ww, g_p, g_w = asm
+
+        def hmul(v_p, v_w):
+            """Undamped Hessian application."""
+            return cg_ops.arrow_matvec(h_pp, off_scale, tmask, b_pw, c_ww,
+                                       v_p, v_w)
+
+        diag_p = torch.clamp(torch.diagonal(h_pp, dim1=-2, dim2=-1),
+                             cfg.diag_min, cfg.diag_max)
+        diag_w = torch.clamp(torch.diagonal(c_ww, dim1=-2, dim2=-1),
+                             cfg.diag_min, cfg.diag_max)
+        radius = state.radius
+
+        if cfg.dogleg:
+            # Gauss-Newton point (lightly regularized) + Cauchy point,
+            # dogleg-interpolated to the trust boundary
+            d_blocks = h_pp + torch.diag_embed(1e-9 * diag_p + cfg.diag_eps)
+            c_reg = c_ww + torch.diag_embed(1e-9 * diag_w + cfg.diag_eps)
+            dp_gn, dw_gn = arrow_solve(d_blocks, off_scale, b_pw, c_reg,
+                                       g_p, g_w)
+            n_gn = torch.sqrt(window_dot(dp_gn, dp_gn) + window_dot(dw_gn, dw_gn))
+
+            hg_p, hg_w = hmul(g_p, g_w)
+            gg = window_dot(g_p, g_p) + window_dot(g_w, g_w)
+            ghg = torch.clamp(window_dot(g_p, hg_p) + window_dot(g_w, hg_w), min=1e-30)
+            alpha = gg / ghg
+            sd_p = -_per_window(alpha, g_p) * g_p
+            sd_w = -_per_window(alpha, g_w) * g_w
+            n_sd = torch.sqrt(alpha * alpha * gg)
+
+            # case C tau: ||sd + tau (gn - sd)||^2 = radius^2
+            df_p, df_w = dp_gn - sd_p, dw_gn - sd_w
+            a = torch.clamp(window_dot(df_p, df_p) + window_dot(df_w, df_w), min=1e-30)
+            b = 2.0 * (window_dot(sd_p, df_p) + window_dot(sd_w, df_w))
+            c = n_sd * n_sd - radius * radius
+            disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
+            tau = torch.clamp((-b + torch.sqrt(disc)) / (2.0 * a), 0.0, 1.0)
+
+            use_gn = n_gn <= radius
+            use_sd = ~use_gn & (n_sd >= radius)
+            sd_scale = radius / torch.clamp(n_sd, min=1e-30)
+
+            def pick(gn, sd, df):
+                return torch.where(
+                    _per_window(use_gn, gn), gn,
+                    torch.where(_per_window(use_sd, sd),
+                                _per_window(sd_scale, sd) * sd,
+                                sd + _per_window(tau, df) * df))
+            dp = pick(dp_gn, sd_p, df_p)
+            dw = pick(dw_gn, sd_w, df_w)
+            boundary = ~use_gn
+        else:
+            # ceres-style LM damping on every diagonal
+            d_blocks = h_pp + torch.diag_embed(
+                diag_p / radius[:, None, None] + cfg.diag_eps)
+            c_reg = c_ww + torch.diag_embed(diag_w / radius[:, None]
+                                            + cfg.diag_eps)
+            dp, dw = arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w)
+
+        params_new = params + dp
+        if cfg.freeze_scale:
+            params_new = torch.cat([params[..., :1], params_new[..., 1:]], -1)
+        else:  # backstop clamp
+            params_new = torch.cat(
+                [torch.clamp(params_new[..., :1], SCALE_MIN, SCALE_MAX),
+                 params_new[..., 1:]], -1)
+        dp = params_new - params  # actual step after projection
+        w_new = w + dw
+        asm_new = None
+        if cfg.fused_cost:
+            asm_new, cost_new = normal_eq(params_new, w_new, kp, r0, pair_w,
+                                          with_cost=True)
+        else:
+            cost_new = cost_fn(params_new, w_new, kp, r0, pair_w)
+
+        # model decrease from the undamped quadratic
+        hd, hd_w = hmul(dp, dw)
+        gd = window_dot(g_p, dp) + window_dot(g_w, dw)
+        dhd = window_dot(hd, dp) + window_dot(hd_w, dw)
+        model_decrease = -gd - 0.5 * dhd
+        rho = (state.cost - cost_new) / torch.clamp(model_decrease, min=1e-30)
+        valid = torch.isfinite(cost_new) & (model_decrease > 0)
+
+        if cfg.dogleg:
+            accept = valid & (state.cost - cost_new > 0)
+            step_norm = torch.sqrt(window_dot(dp, dp) + window_dot(dw, dw))
+            new_radius = torch.where(
+                rho < 0.25, 0.25 * step_norm,
+                torch.where((rho > 0.75) & boundary, 2.0 * radius, radius))
+            new_radius = torch.clamp(new_radius, 1e-12, 1e10)
+            decrease_factor = state.decrease_factor
+        else:
+            accept = valid & (rho > cfg.min_rel_decrease)
+            grow = radius / torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                        min=1.0 / 3.0)
+            shrink = radius / state.decrease_factor
+            new_radius = torch.clamp(torch.where(accept, grow, shrink),
+                                     1e-32, 1e16)
+            decrease_factor = torch.where(
+                accept, torch.full_like(radius, 2.0),
+                state.decrease_factor * 2.0)
+
+        f_conv = torch.abs(state.cost - cost_new) <= cfg.ftol * state.cost
+        converged = state.converged | (accept & f_conv)
+        if cfg.dogleg:
+            # accept-any-decrease rejects every trial AT an optimum: also
+            # converge when the radius collapses to parameter tolerance
+            x_norm = torch.sqrt(window_dot(params, params) + window_dot(w, w))
+            converged = converged | (new_radius <= 1e-8 * (x_norm + 1e-8))
+        do_move = accept & ~state.converged
+        frozen = state.converged
+
+        new_state = MultiFrameState(
+            params=torch.where(_per_window(do_move, params), params_new, params),
+            shape=torch.where(_per_window(do_move, w), w_new, w),
+            radius=torch.where(frozen, radius, new_radius),
+            decrease_factor=torch.where(frozen, state.decrease_factor,
+                                        decrease_factor),
+            cost=torch.where(do_move, cost_new, state.cost),
+            converged=converged,
+            n_accepted=state.n_accepted + do_move.to(torch.int32),
+            iters_run=state.iters_run + (~frozen).to(torch.int32),
+        )
+        if asm_new is not None:
+            asm_new = tuple(torch.where(_per_window(do_move, old), new, old)
+                            for old, new in zip(asm, asm_new))
+        return new_state, asm_new, new_state.cost
+
+    def fit(params0, shape0, kp, r0, frame_valid=None):
+        unbatched = params0.dim() == 2
+        if unbatched:
+            params0, kp, r0 = params0[None], kp[None], r0[None]
+            if frame_valid is not None:
+                frame_valid = frame_valid[None]
+
+        def to(t):
+            return torch.as_tensor(t).to(device=device, dtype=dtype)
+        params0, shape0, kp, r0 = to(params0), to(shape0), to(kp), to(r0)
+        n_win, f_dim = params0.shape[:2]
+        shape0 = shape0.expand(n_win, shape0.shape[-1]).contiguous()
+        frame_valid = (torch.ones((n_win, f_dim), dtype=dtype, device=device)
+                       if frame_valid is None else to(frame_valid))
+        pair_w = frame_valid[:, :-1] * frame_valid[:, 1:]
+        # dogleg radius scales with the VALID frame count, so padded and
+        # unpadded solves of the same real frames follow one trajectory
+        n_valid = torch.clamp(torch.sum(frame_valid, dim=-1), min=1.0)
+        radius0 = (cfg.dogleg_init_radius * torch.sqrt(n_valid) if cfg.dogleg
+                   else torch.full((n_win,), cfg.init_radius, dtype=dtype,
+                                   device=device))
+        asm = None
+        if cfg.fused_cost:
+            asm, cost0 = normal_eq(params0, shape0, kp, r0, pair_w,
+                                   with_cost=True)
+        else:
+            cost0 = cost_fn(params0, shape0, kp, r0, pair_w)
+        zeros_i = torch.zeros(n_win, dtype=torch.int32, device=device)
+        state = MultiFrameState(
+            params=params0, shape=shape0, radius=radius0,
+            decrease_factor=torch.full((n_win,), 2.0, dtype=dtype,
+                                       device=device),
+            cost=cost0,
+            converged=torch.zeros(n_win, dtype=torch.bool, device=device),
+            n_accepted=zeros_i, iters_run=zeros_i)
+        # post-exit slots hold the final cost, so loss curves stay flat
+        hist = cost0[:, None].repeat(1, cfg.max_iters)
+        it = 0
+        while it < cfg.max_iters and not bool(state.converged.all()):
+            if not cfg.fused_cost:
+                asm = normal_eq(state.params, state.shape, kp, r0, pair_w)
+            state, asm, cost = step(state, kp, r0, pair_w, asm)
+            hist[:, it:] = cost[:, None]
+            it += 1
+        result = MultiFrameResult(*state, cost_history=hist)
+        if unbatched:
+            result = MultiFrameResult(*(t[0] for t in result))
+        return result
+
+    return fit

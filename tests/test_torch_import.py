@@ -1,0 +1,82 @@
+"""The port imports no JAX, and its copies of the reference's numpy helpers
+stay equal to the originals."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from smpltpu.models.synthetic import make_synthetic_model as j_make_model
+from smpltpu.solve.two_stage import interp_tables as j_interp_tables
+from smpltpu_torch.models.synthetic import make_synthetic_model
+from smpltpu_torch.solve.two_stage import interp_tables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SLICE_MODULES = [
+    "smpltpu_torch",
+    "smpltpu_torch._build",
+    "smpltpu_torch.models",
+    "smpltpu_torch.models.smpl",
+    "smpltpu_torch.models.synthetic",
+    "smpltpu_torch.energy",
+    "smpltpu_torch.energy.params",
+    "smpltpu_torch.energy.reproj",
+    "smpltpu_torch.energy.temporal",
+    "smpltpu_torch.energy.priors",
+    "smpltpu_torch.energy.jacobian",
+    "smpltpu_torch.solve",
+    "smpltpu_torch.solve.lm",
+    "smpltpu_torch.solve.multi_frame",
+    "smpltpu_torch.solve.two_stage",
+    "smpltpu_torch.utils",
+    "smpltpu_torch.utils.camera",
+    "smpltpu_torch.utils.writeback",
+    "smpltpu_torch.utils.metrics",
+    "smpltpu_torch.ops.cg",
+    "smpltpu_torch.ops.lbs",
+    "smpltpu_torch.pipeline.common",
+]
+
+
+def test_port_imports_no_jax():
+    """A fresh interpreter (this one has JAX loaded by conftest) imports
+    every slice module and must not have pulled JAX in; importing builds
+    no kernel and leaves TF32 off."""
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch, smpltpu_torch._build as b\n"
+            "assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not torch.backends.cudnn.allow_tf32\n"
+            "assert b._lib is None\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] == 'jax'))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("kw", [
+    {"n_verts": 300, "n_shapes": 10, "seed": 0},
+    {"n_verts": 150, "seed": 5, "with_posedirs": False},
+])
+def test_synthetic_model_copy_matches_reference(kw):
+    got, want = make_synthetic_model(**kw), j_make_model(**kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        if want[k] is None:
+            assert got[k] is None
+        else:
+            np.testing.assert_array_equal(got[k], want[k])
+            assert got[k].dtype == want[k].dtype
+
+
+@pytest.mark.parametrize("anchors,n", [(list(range(0, 40, 10)), 40),
+                                       ([0, 3, 4, 9], 12), ([0], 5)])
+def test_interp_tables_copy_matches_reference(anchors, n):
+    for got, want in zip(interp_tables(anchors, n), j_interp_tables(anchors, n)):
+        np.testing.assert_array_equal(got, want)
