@@ -25,6 +25,17 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    of all frames
    through K2, two frames rendered with the host painter; then the same
    fit with the plain PCG, which must land within 0.1 px.
+6. the render stage: K3 (the z-buffer rasterizer) against its plain
+   version, pixel-exact, on one triangle, an occluding pair, culled faces,
+   a mesh partly off screen, a near face over most of the frame and 8
+   fitted frames, all at 1280 x 720; K3's time per 100-frame launch; then
+   all 1000 fitted frames rendered through K2 -> K3 on the device
+   (``render_frames``), with the launch counts of that run, every frame's
+   coverage, and two frames held against the host painter's coverage.
+
+Every kernel's line carries its bound: the larger of its bytes (inputs
+read once, outputs written once) over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, the H100 SXM's published peaks.
 
 Each phase prints one line. The line before the last is the kernels' JSON
 summary, the last line ``{"ok": true, "device": {...}}``. A failed check
@@ -46,6 +57,21 @@ K1_TOL = 2e-4        # relative to the solution's scale (tests/test_cg_kernel.py
 K2_ATOL = 1e-5       # metre-scale vertices, float32
 RESIDUAL_MAX_PX = 2.0
 PLAIN_GAP_MAX_PX = 0.1
+H_R, W_R = 1280, 720          # render size: the bench camera at full size
+DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
+FP32_FLOPS_PER_S = 67e12
+
+
+def bound(n_bytes, n_flops):
+    """(bound_ms, bound_by): the least time for the bytes and the float32
+    operations at the card's peaks."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def phase(label, /, **fields):
@@ -143,6 +169,15 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
         out[f"scale_{part}"] = scale
         out[f"kernel_vs_f64_{part}"] = k_dev
         out[f"plain_vs_f64_{part}"] = p_dev
+    # per CG step and window: the D matvec 2FP^2, the shape border
+    # 4FPnS, the tridiagonal couplings 4FP, C 2nS^2, and 11 (FP + nS) for
+    # the preconditioner, two dots and three updates (rtol 0 on the main
+    # path: every step runs)
+    n_w, f, p = args[5].shape
+    n_s = args[6].shape[-1]
+    flops = iters * n_w * (2 * f * p * p + 4 * f * p * n_s + 4 * f * p
+                           + 2 * n_s * n_s + 11 * (f * p + n_s))
+    out["bound_ms"], out["bound_by"] = bound(nbytes(*args, *got), flops)
     out["ms"] = cuda_ms(lambda: cg.arrow_pcg(*args, iters=iters, rtol=rtol),
                         reps[0])
     out["plain_ms"] = cuda_ms(
@@ -160,7 +195,7 @@ def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
     full-width synthetic SMPL model, 720 x 1280 camera; anchors and the
     sliding-window batch."""
     import torch
-    from smpltpu.constants import N_KP_SLOTS, USE_SMPL, init_root_rotation
+    from smpltpu_torch.constants import N_KP_SLOTS, USE_SMPL, init_root_rotation
     from smpltpu_torch.energy import (
         make_skeleton_spec,
         project,
@@ -266,6 +301,189 @@ def full_batch_residual(w, frame_params, shp):
     return float(d.mean())
 
 
+def k3_bound(setup, height, width):
+    """K3's bound on these inputs: the per-face data read once and gray and
+    covered written once; 12 float32 operations (3 edges, 2 products and 2
+    sums each) for every pixel of every kept face's clipped bounding box."""
+    from smpltpu_torch.render.zbuffer import face_bbox
+    bb = face_bbox(setup, height, width).long()
+    n_px = int((bb[..., 2] * bb[..., 3]).sum())
+    b = setup.key.shape[0]
+    return bound(nbytes(*setup) + 2 * b * height * width, 12 * n_px), n_px
+
+
+def k3_case(label, verts, faces, intr, checks, expect):
+    """K3 against its plain version on the same face setup, pixel-exact;
+    ``expect(covered_px, setup, gray)`` checks the scene's own content."""
+    import torch
+    from smpltpu_torch.render.zbuffer import (
+        face_setup,
+        rasterize,
+        rasterize_torch,
+    )
+    st = face_setup(verts, faces, *intr)
+    g1, c1 = rasterize(st, H_R, W_R)
+    g2, c2 = rasterize_torch(st, H_R, W_R)
+    torch.cuda.synchronize()
+    d_gray = int((g1 != g2).sum())
+    d_cov = int((c1 != c2).sum())
+    n_cov = int(c1.sum())
+    scene_ok = bool(expect(n_cov, st, g1))
+    ok = d_gray == 0 and d_cov == 0 and scene_ok
+    checks(ok, f"K3 {label}: {d_gray} gray and {d_cov} covered pixels differ "
+               f"from the plain version, scene check {scene_ok}")
+    phase(f"6 k3_{label}", ok=ok, frames=int(verts.shape[0]),
+          kept_faces=int(st.keep.sum()), covered_px=n_cov,
+          differing_gray_px=d_gray, differing_covered_px=d_cov)
+    return st
+
+
+def coverage_agreement(cov_dev, cov_host):
+    """(dev_in_host, host_in_dev): the share of each mask within a 1-px
+    dilation of the other (tests/test_jax_raster.py:94-104)."""
+    def dil(m):
+        out = m.copy()
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                out |= np.roll(np.roll(m, dy, 0), dx, 1)
+        return out
+    return ((cov_dev & dil(cov_host)).sum() / max(cov_dev.sum(), 1),
+            (cov_host & dil(cov_dev)).sum() / max(cov_host.sum(), 1))
+
+
+def render_phase(w, frame_params, shp, verts, fit_s, checks):
+    """Phase 6 on the fitted frames (``verts``: their skinned vertices from
+    phase 5, numpy): the K3 cases, K3's time per 100-frame launch, and the
+    counted render of every frame. Returns (the K3 numbers, K3's launches
+    in the render)."""
+    import torch
+    from smpltpu_torch.ops import LAUNCHES
+    from smpltpu_torch.pipeline.common import (
+        render_frames,
+        render_overlay_image,
+    )
+    from smpltpu_torch.render.zbuffer import (
+        face_setup,
+        rasterize,
+        rasterize_torch,
+    )
+    dev = frame_params.device
+    n = w["n_frames"]
+    intr = tuple(float(c) for c in (w["cam"].fx, w["cam"].fy, w["cam"].cx,
+                                    w["cam"].cy))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    def faces_of(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    tri = t([[-0.2, -0.2, 2.0], [0.2, -0.2, 2.0], [0.0, 0.3, 2.0]])[None]
+    # K3 against its plain version, pixel-exact, scene by scene
+    k3_case("triangle", tri, faces_of([[0, 2, 1]]), intr, checks,
+            lambda cov, st, g: cov > 1000)
+    pair = t([[-0.31, -0.29, 2.0], [0.33, -0.27, 2.05], [0.02, 0.41, 1.95],
+              [-0.21, -0.19, 1.5], [0.23, -0.22, 1.52],
+              [-0.01, 0.26, 1.49]])[None]
+
+    def near_wins(cov, st, g):
+        # the near face's own gray at its centroid's pixel
+        x = int(st.u[0, 1].mean())
+        y = int(st.v[0, 1].mean())
+        return cov > 1000 and int(g[0, y, x]) == int(st.key[0, 1]) & 0xFF
+    k3_case("occlusion", pair, faces_of([[0, 2, 1], [3, 5, 4]]), intr, checks,
+            near_wins)
+    culled = t([[-0.2, -0.2, 2.0], [0.2, -0.2, 2.0], [0.0, 0.3, 2.0],
+                [-0.2, -0.2, -1.0], [0.2, -0.2, -1.0], [0.0, 0.3, -1.0]])[None]
+    k3_case("culled", culled, faces_of([[0, 1, 2], [3, 5, 4]]), intr, checks,
+            lambda cov, st, g: cov == 0 and not bool(st.keep.any()))
+    faces = faces_of(w["model"].faces)
+    body = t(verts[:1] + np.array([1.0, 1.3, 0.0]))  # shifted right and down
+    k3_case("off_screen", body, faces, intr, checks,
+            lambda cov, st, g: cov > 1000 and float(st.u[st.keep].max()) > W_R
+            and float(st.v[st.keep].max()) > H_R)
+    near = t([[-1.0, -0.8, 0.5], [1.0, -0.8, 0.5], [0.0, 1.2, 0.5]])[None]
+    k3_case("near_face", near, faces_of([[0, 2, 1]]), intr, checks,
+            lambda cov, st, g: cov >= H_R * W_R // 2)
+    k3_case("fitted_8_frames", t(verts[::n // 8]), faces, intr, checks,
+            lambda cov, st, g: bool((g.flatten(1) > 0).sum(1).min() > 0))
+
+    # K3's time per 100-frame launch, and its plain version's
+    st100 = face_setup(t(verts[:100]), faces, *intr)
+    g1, c1 = rasterize(st100, H_R, W_R)
+    g2, c2 = rasterize_torch(st100, H_R, W_R)
+    k3_diff = int((g1 != g2).sum()) + int((c1 != c2).sum())
+    checks(k3_diff == 0, f"K3, 100 frames: {k3_diff} pixels differ")
+    del g1, c1, g2, c2
+    (k3_bound_ms, k3_bound_by), k3_px = k3_bound(st100, H_R, W_R)
+    k3 = {"ms": cuda_ms(lambda: rasterize(st100, H_R, W_R), 20),
+          "plain_ms": cuda_ms(lambda: rasterize_torch(st100, H_R, W_R), 2),
+          "bound_ms": k3_bound_ms, "bound_by": k3_bound_by}
+    phase("6 k3_b100", ok=k3_diff == 0, frames=100, differing_px=k3_diff,
+          bbox_px=k3_px, plain_ms_per_frame=k3["plain_ms"] / 100, **k3)
+    del st100
+
+    # the render of every fitted frame through K2 -> K3, counted
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gray, covered = render_frames(w["model"], frame_params, shp, w["r0c"],
+                                  w["cam"], H_R, W_R)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    k2_render, k3_launches = LAUNCHES["lbs"], LAUNCHES["raster"]
+    render_peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_chunks = -(-n // 100)
+    checks(k3_launches == n_chunks,
+           f"K3 launches {k3_launches} != {n_chunks} chunks")
+    checks(k2_render == n_chunks,
+           f"K2 launches in the render {k2_render} != {n_chunks} chunks")
+    checks(tuple(gray.shape) == (n, H_R, W_R) and gray.dtype == torch.uint8
+           and tuple(covered.shape) == (n, H_R, W_R), "render output shape")
+    per_frame = covered.flatten(1).sum(1)
+    checks(bool((per_frame > 0).all()),
+           f"{int((per_frame == 0).sum())} rendered frames are empty")
+    agree = {}
+    for k in (0, n // 2):
+        img = np.zeros((H_R, W_R, 3), np.uint8)
+        render_overlay_image(w["model"], verts[k], img, w["cam"])
+        d_in_h, h_in_d = coverage_agreement(gray[k].cpu().numpy() > 0,
+                                            img[..., 0] > 0)
+        agree[k] = [float(d_in_h), float(h_in_d)]
+        checks(d_in_h >= DEV_IN_HOST_MIN and h_in_d >= HOST_IN_DEV_MIN,
+               f"frame {k}: device vs host painter coverage {d_in_h}, {h_in_d}")
+    phase("6 render", frames=n, height=H_R, width=W_R, render_s=render_s,
+          render_frames_per_s=n / render_s,
+          solve_render_frames_per_s=n / (fit_s + render_s),
+          k2_launches=k2_render, k3_launches=k3_launches,
+          covered_px={str(k): int(per_frame[k]) for k in (0, n // 2, n - 1)},
+          min_covered_px=int(per_frame.min()),
+          dev_in_host_host_in_dev=agree, peak_gib=render_peak_gib)
+    del gray, covered
+
+    # where the render's device time goes: one more pass, profiled
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        render_frames(w["model"], frame_params, shp, w["r0c"], w["cam"],
+                      H_R, W_R)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA}
+    k3_us = sum(v for k, v in dev_us.items()
+                if "raster_kernel" in k or "resolve_kernel" in k)
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+    phase("6 render_profile", wall_ms=prof_ms,
+          device_busy_ms=sum(dev_us.values()) / 1e3,
+          k3_kernels_ms=k3_us / 1e3, device_kernels=len(dev_us),
+          top_kernels_ms=[[k[:90], v / 1e3] for k, v in top])
+
+    return k3, k3_launches
+
+
 def main():
     import torch
 
@@ -343,9 +561,16 @@ def main():
     k2_err = float((got - want).abs().max())
     k2_ok = k2_err <= K2_ATOL and bool(torch.all(torch.isfinite(got)))
     checks(k2_ok, f"K2: kernel vs plain {k2_err} > {K2_ATOL}")
+    # per (frame, vertex): blend 6nS + 3, transforms 24nJ, apply 18
+    k2_bound = bound(
+        nbytes(shapes, g_aff, got, ops["v_template_t"], ops["shapedirs_t"],
+               ops["weights_t"]),
+        b * model.num_verts * (6 * shapes.shape[1] + 3
+                              + 24 * model.num_joints + 18))
     k2 = {"shape": list(got.shape), "max_abs_err": k2_err,
           "ms": cuda_ms(lambda: lbs.lbs(shapes, g_aff, ops), 50),
-          "plain_ms": cuda_ms(lambda: lbs.lbs_torch(shapes, g_aff, ops), 10)}
+          "plain_ms": cuda_ms(lambda: lbs.lbs_torch(shapes, g_aff, ops), 10),
+          "bound_ms": k2_bound[0], "bound_by": k2_bound[1]}
     phase("4 k2_b100", ok=k2_ok, **k2)
 
     # 5. main path
@@ -443,7 +668,12 @@ def main():
           frames_per_s=n / plain_s, full_batch_residual_px=residual_plain,
           gap_px=gap)
 
-    checks("jax" not in sys.modules, "JAX was imported")
+    k3, k3_launches = render_phase(w, frame_params, shp, verts, fit_s,
+                                   checks)
+
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "smpltpu"))
+    checks(not foreign, f"JAX or the JAX package was imported: {foreign}")
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed: "
               f"{checks.failed}", flush=True)
@@ -454,11 +684,20 @@ def main():
          "source": "smpltpu_torch/csrc/arrow_pcg.cu",
          "replaces": "smpltpu/ops/cg.py:146", "launches": k1_launches,
          "max_abs_err": max(s2["max_abs_err_p"], s2["max_abs_err_w"]),
-         "ms": s2["ms"], "plain_ms": s2["plain_ms"]},
+         "ms": s2["ms"], "plain_ms": s2["plain_ms"],
+         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
+         "library_ms": None},
         {"name": "lbs", "route": "cuda", "source": "smpltpu_torch/csrc/lbs.cu",
          "replaces": "smpltpu/ops/lbs.py:88", "launches": k2_launches,
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "raster", "route": "cuda",
+         "source": "smpltpu_torch/csrc/raster.cu",
+         "replaces": "smpltpu/render/pallas_raster.py:425",
+         "launches": k3_launches, "max_abs_err": 0, "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,14 +3,15 @@
 The JAX package ``smpltpu/`` stays the reference; every module here has its
 twin at the same relative path there (``smpltpu_torch/solve/multi_frame.py``
 ports ``smpltpu/solve/multi_frame.py``, and so on). This package imports
-``torch`` and never ``jax``; of the reference package it reuses only the
-JAX-free host modules (``smpltpu.constants``, ``smpltpu.io`` and
-``smpltpu.render.raster``).
+``torch`` and never ``jax``, and nothing of the reference package either:
+what it needs from the reference's JAX-free modules is copied
+(``constants.py``, ``render/raster.py``, ``models/synthetic.py``).
 
-The slice ported so far is the fused two-stage multi-frame fit (stage-1
+The slices ported so far: the fused two-stage multi-frame fit (stage-1
 anchors, in-graph interpolation, batched stage-2 windows) with the
 arrowhead PCG solve in a hand-written CUDA kernel (``ops/cg.py``), then
-write-back and skinning through a CUDA LBS kernel (``ops/lbs.py``).
+write-back, skinning through a CUDA LBS kernel (``ops/lbs.py``) and the
+render of every frame through a CUDA z-buffer (``render/zbuffer.py``).
 
 Precision: the port runs in float32 on the card and float64 in the CPU
 tests. TF32 is switched off here, once, for matmuls and cuDNN: the

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``smpltpu_torch/csrc/`` are compiled by ``nvcc`` into
-one shared library with a plain C interface and loaded with ``ctypes``.
-The build runs at first use (never at import), into ``build/smpltpu_torch/``
-at the root of the checkout, and is keyed by a hash of the sources and the
-flags, so an edited source rebuilds and an unchanged one is loaded as it
-is. Nothing outside the checkout is used except the CUDA toolkit.
+The sources under ``smpltpu_torch/csrc/`` are compiled by ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs
+at first use (never at import), into ``build/smpltpu_torch/`` at the root
+of the checkout, and is keyed by a hash of the sources and the flags, so
+an edited source rebuilds and an unchanged one is loaded as it is.
+Nothing outside the checkout is used except the CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-SOURCES = ("arrow_pcg.cu", "lbs.cu")
+SOURCES = ("arrow_pcg.cu", "lbs.cu", "raster.cu")
 BUILD_DIR = _PKG.parent / "build" / "smpltpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,7 @@ _SIGNATURES = {
     "smpltpu_arrow_pcg_f32": (_I, [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]),
     "smpltpu_arrow_pcg_scratch_floats": (ctypes.c_longlong, [_I] * 3),
     "smpltpu_lbs_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "smpltpu_raster_i32": (_I, [_P] * 4 + [_I] * 5 + [_P] * 4),
 }
 
 _lib = None
@@ -61,14 +63,30 @@ def load() -> ctypes.CDLL:
     built = not so.is_file()
     if built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{name}.{tag}.o" for name in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(_CSRC / name)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for name, o in zip(SOURCES, objs)]
+        failed = []
+        for name, proc in zip(SOURCES, procs):
+            out = proc.communicate()[0]
+            log += f"== {name}\n{out}"
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-             *(str(_CSRC / name) for name in SOURCES)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        for o in objs:
+            o.unlink()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n{log}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for fn, (res, args) in _SIGNATURES.items():

@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from smpltpu.constants import SMPL_NUM_JOINTS
+from smpltpu_torch.constants import SMPL_NUM_JOINTS
 
 
 def frame_param_layout(n_joints: int = SMPL_NUM_JOINTS) -> dict:

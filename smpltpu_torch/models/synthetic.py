@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from smpltpu.constants import (
+from smpltpu_torch.constants import (
     SMPL_NUM_FACES,
     SMPL_NUM_JOINTS,
     SMPL_NUM_SHAPES,

@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as tnf
 
-from smpltpu.constants import HUBER_DELTA, SCALE_MAX, SCALE_MIN
+from smpltpu_torch.constants import HUBER_DELTA, SCALE_MAX, SCALE_MIN
 from smpltpu_torch.energy.jacobian import keypoint_residuals_and_jacobian
 from smpltpu_torch.energy.params import frame_param_layout
 from smpltpu_torch.energy.reproj import Camera, SkeletonSpec, keypoint_residuals

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from smpltpu.constants import FOCAL_FACTOR
+from smpltpu_torch.constants import FOCAL_FACTOR
 from smpltpu_torch.energy.reproj import Camera
 
 

@@ -26,13 +26,17 @@ import smpltpu.energy as jen
 from smpltpu.constants import init_root_rotation
 from smpltpu.models import SMPLModel as JModel
 from smpltpu.pipeline.common import batched_frame_eval as j_frame_eval
+from smpltpu.render.jax_raster import pick_patch, rasterize_zbuffer
+from smpltpu.render.pallas_raster import render_overlay_tiled
 from smpltpu.solve import MultiFrameConfig as JConfig
 from smpltpu.solve import build_fused_two_stage as j_two_stage
 from smpltpu.solve import build_multi_fitter as j_build
 from smpltpu.utils import default_intrinsics as j_intrinsics
 from smpltpu_torch.energy.params import init_frame_params
+from smpltpu_torch.pipeline import common as pipeline_common
 from smpltpu_torch.pipeline.common import (
     batched_frame_eval,
+    render_frames,
     render_overlay_image,
 )
 from smpltpu_torch.solve import (
@@ -198,7 +202,9 @@ def test_linear_options(small_model_dict):
 
 def test_batched_frame_eval_and_render_match_jax(small_model_dict, jax_side):
     """Per-frame errors (scale discarded, full-model joints) and skinned
-    vertices through the LBS path, f64: 1e-10 (same sums, other order)."""
+    vertices through the LBS path, f64: 1e-10 (same sums, other order);
+    the overlay render of a frame through the host painter, and through
+    the z-buffer pixel for pixel against ``render_overlay_tiled``."""
     rig = make_rig(small_model_dict, 7, seed=11)
     params = rig["gt"].copy()
     params[:, 0] = 1.1
@@ -212,6 +218,36 @@ def test_batched_frame_eval_and_render_match_jax(small_model_dict, jax_side):
     img = np.zeros((H_IMG, W_IMG, 3), np.uint8)
     out = render_overlay_image(rig["model"], verts[0], img, rig["cam"])
     assert out is img and int((img > 0).any(axis=-1).sum()) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        render_overlay_image(rig["model"], verts[0], img, rig["cam"],
-                             use_jax=True)
+    # the on-device path (K3's plain version on the CPU) over a frame that
+    # already holds the host render, pixel for pixel against the reference
+    want = render_overlay_tiled(jverts[0], jm.faces, img,
+                                *(float(c) for c in jcam))
+    out = render_overlay_image(rig["model"], verts[0], img, rig["cam"],
+                               use_jax=True)
+    assert out is img
+    np.testing.assert_array_equal(img, want)
+
+
+def test_render_frames_matches_jax(small_model_dict, jax_side, monkeypatch):
+    """The render of every frame (FK, skinning, face setup, z-buffer) in
+    chunks of 3 frames, against the reference's skinned vertices through
+    ``rasterize_zbuffer``, pixel for pixel."""
+    monkeypatch.setattr(pipeline_common, "SKIN_BATCH", 3)
+    rig = make_rig(small_model_dict, 7, seed=12)
+    params = rig["gt"].copy()
+    shape = rig["shape"]
+    gray, covered = render_frames(rig["model"], params, shape, rig["r0"],
+                                  rig["cam"], H_IMG, W_IMG)
+    assert gray.shape == (7, H_IMG, W_IMG) and gray.dtype == torch.uint8
+    assert covered.shape == (7, H_IMG, W_IMG) and covered.dtype == torch.bool
+    jm, jcam, _ = jax_side
+    _, jverts = j_frame_eval(jm, params, np.tile(shape, (7, 1)), rig["r0"],
+                             rig["kp"], jcam)
+    for k in range(7):
+        g, c = rasterize_zbuffer(
+            jnp.asarray(jverts[k]), jnp.asarray(np.asarray(jm.faces, np.int32)),
+            *(float(v) for v in jcam), H_IMG, W_IMG,
+            patch=pick_patch(jverts[k], jm.faces, *(float(v) for v in jcam)))
+        np.testing.assert_array_equal(covered[k].numpy(), np.asarray(c))
+        np.testing.assert_array_equal(gray[k].numpy(), np.asarray(g))
+        assert int(c.sum()) > 100

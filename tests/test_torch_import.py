@@ -1,6 +1,9 @@
-"""The port imports no JAX, and its copies of the reference's numpy helpers
-stay equal to the originals."""
+"""The port imports no JAX and nothing of the JAX package, and its copies
+of the reference's numpy helpers and constants stay equal to the
+originals."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -8,6 +11,8 @@ import sys
 import numpy as np
 import pytest
 
+import smpltpu.constants as j_constants
+import smpltpu_torch.constants as constants
 from smpltpu.models.synthetic import make_synthetic_model as j_make_model
 from smpltpu.solve.two_stage import interp_tables as j_interp_tables
 from smpltpu_torch.models.synthetic import make_synthetic_model
@@ -17,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_MODULES = [
     "smpltpu_torch",
     "smpltpu_torch._build",
+    "smpltpu_torch.constants",
     "smpltpu_torch.models",
     "smpltpu_torch.models.smpl",
     "smpltpu_torch.models.synthetic",
@@ -34,16 +40,31 @@ SLICE_MODULES = [
     "smpltpu_torch.utils.camera",
     "smpltpu_torch.utils.writeback",
     "smpltpu_torch.utils.metrics",
+    "smpltpu_torch.ops",
     "smpltpu_torch.ops.cg",
     "smpltpu_torch.ops.lbs",
+    "smpltpu_torch.render",
+    "smpltpu_torch.render.raster",
+    "smpltpu_torch.render.zbuffer",
+    "smpltpu_torch.pipeline",
     "smpltpu_torch.pipeline.common",
 ]
+# every source file of the port, and the card check
+PORT_FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+    os.path.join(REPO, "smpltpu_torch", "**", "*.py"), recursive=True))
+PORT_FILES.append("chip_smoke.py")
+
+
+def _foreign(name):
+    """A module of JAX or of the JAX package (``smpltpu_torch`` is fine)."""
+    return name.split(".")[0] in ("jax", "jaxlib", "smpltpu")
 
 
 def test_port_imports_no_jax():
     """A fresh interpreter (this one has JAX loaded by conftest) imports
-    every slice module and must not have pulled JAX in; importing builds
-    no kernel and leaves TF32 off."""
+    every slice module and must not have pulled in JAX or any module of the
+    JAX package (``smpltpu`` or ``smpltpu.*``); importing builds no kernel
+    and leaves TF32 off."""
     code = ("import importlib, sys\n"
             f"for m in {SLICE_MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -51,7 +72,8 @@ def test_port_imports_no_jax():
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n"
             "assert b._lib is None\n"
-            "print(sorted(k for k in sys.modules if k.split('.')[0] == 'jax'))\n")
+            "print(sorted(k for k in sys.modules\n"
+            "             if k.split('.')[0] in ('jax', 'smpltpu')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -80,3 +102,31 @@ def test_synthetic_model_copy_matches_reference(kw):
 def test_interp_tables_copy_matches_reference(anchors, n):
     for got, want in zip(interp_tables(anchors, n), j_interp_tables(anchors, n)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_sources_import_nothing_of_jax(path):
+    """Every import statement of the port's files and of chip_smoke.py, at
+    any depth (the subprocess above sees only what runs at import), names
+    neither JAX nor a module of the JAX package."""
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert not [n for n in names if _foreign(n)], path
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for n in vars(constants) if not n.startswith("_") and n != "np"))
+def test_constants_copy_matches_reference(name):
+    got, want = getattr(constants, name), getattr(j_constants, name)
+    if callable(want):
+        got, want = got(), want()
+    np.testing.assert_array_equal(got, want)
+    assert type(got) is type(want)
+    if isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype
