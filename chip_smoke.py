@@ -12,9 +12,13 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    versions; TF32 must be off.
 2. build: nvcc time and the compiler's register/spill report.
 3. K1 (arrowhead PCG) against its plain PyTorch version in float32 on
-   random SPD arrowhead systems at the stage-2 (67 x 20 frames) and stage-1
-   (1 x 100 frames) shapes, with 40 CG steps, plus the tolerance exit and
-   a window too large for shared memory; kernel and plain times.
+   random SPD arrowhead systems, 40 CG steps: a sweep over window counts
+   W in {1, 3, 67}, frames per window F in {1, 7, 20, 33, 100, 150, 160,
+   400} and nS in {10, 16}, with the tolerance exit and a forced one-CTA
+   plan whose vectors live in global scratch; each case printed with its
+   launch plan (cluster size, resident frames, shared bytes), run twice
+   and required bitwise identical. Then the stage-2 (67 x 20) and stage-1
+   (1 x 100) shapes timed under several cluster sizes (the layouts).
 4. K2 (blendshapes + skinning) against its plain version, 100 frames of
    the full-width model; both times.
 5. the main path: the 1000-frame synthetic workload of bench.py through
@@ -23,8 +27,10 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    against the plain version: see ``k1_compare`` for the tolerance on
    these ill-conditioned systems; then a timed run), write-back, skinning
    of all frames
-   through K2, two frames rendered with the host painter; then the same
-   fit with the plain PCG, which must land within 0.1 px.
+   through K2, two frames rendered with the host painter; one more fit
+   under torch.profiler (device busy ms, K1's ms and launches, the idle
+   share); then the same fit with the plain PCG, which must land within
+   0.1 px.
 6. the render stage: K3 (the z-buffer rasterizer) against its plain
    version, pixel-exact, on one triangle, an occluding pair, culled faces,
    a mesh partly off screen, a near face over most of the frame and 8
@@ -61,6 +67,25 @@ H_R, W_R = 1280, 720          # render size: the bench camera at full size
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12
+# phase 3's K1 cases: (label, windows W, frames F, shapes nS, rtol, forced
+# cluster size or None for the plan's own choice)
+K1_SWEEP = (
+    ("stage2", 67, 20, 10, 0.0, None),
+    ("stage1", 1, 100, 10, 0.0, None),
+    ("stage2_rtol", 67, 20, 10, 0.05, None),
+    ("f1", 1, 1, 10, 0.0, None),
+    ("f7_ns16", 3, 7, 16, 0.0, None),
+    ("f20_w1_ns16", 1, 20, 16, 0.0, None),
+    ("f33", 3, 33, 10, 0.0, None),
+    ("stage1_ns16", 1, 100, 16, 0.0, None),
+    ("f150", 1, 150, 10, 0.0, None),
+    ("f160_ns16", 3, 160, 16, 0.0, None),
+    ("f400", 1, 400, 10, 0.0, None),
+    ("f400_rtol", 1, 400, 16, 0.05, None),
+    ("f160_one_cta_scratch", 2, 160, 10, 0.0, 1),
+)
+# cluster sizes timed at the two stage shapes (phase 3 layouts)
+K1_LAYOUTS = {(67, 20): (1, 2, 3, 4, 5), (1, 100): (8, 15, 16)}
 
 
 def bound(n_bytes, n_flops):
@@ -128,9 +153,12 @@ def random_arrow_system(rng, w, f, device, scale=1.0, p=76, n_s=10):
 
 
 def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
-               real_system=False, phase_no=3):
+               real_system=False, phase_no=3, cluster=None):
     """K1 against the plain version on the same f32 inputs, and both
-    against a float64 run of the plain version; then both timed.
+    against a float64 run of the plain version; then both timed. The
+    kernel runs twice and the two outputs must be bitwise identical (the
+    cluster reductions sum in a fixed order). ``cluster`` forces the
+    plan's cluster size.
 
     Random systems (well conditioned): the kernel must agree with the f32
     plain version within K1_TOL of the solution's scale, as numpy's
@@ -147,12 +175,23 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     import torch
     from smpltpu_torch.ops import cg
 
-    got = cg.arrow_pcg(*args, iters=iters, rtol=rtol)
+    n_w, f, p = args[5].shape
+    n_s = args[6].shape[-1]
+    plan = cg.k1_plan(n_w, f, p, n_s, **cg.device_limits(args[5].device),
+                      cluster=cluster)
+
+    def kernel():
+        return cg.arrow_pcg_planned(plan, *args, iters=iters, rtol=rtol)
+    got = kernel()
+    again = kernel()
     want = cg.arrow_pcg_torch(*args, iters=iters, rtol=rtol)
     ref = cg.arrow_pcg_torch(*(a.double() for a in args), iters=iters, rtol=rtol)
     torch.cuda.synchronize()
-    out = {"shape": list(args[5].shape), "iters": iters, "rtol": rtol}
-    ok = True
+    repeat_ok = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    checks(repeat_ok, f"K1 {label}: two launches differ")
+    out = {"shape": list(args[5].shape), "n_s": n_s, "iters": iters,
+           "rtol": rtol, "plan": plan._asdict(), "bitwise_repeat": repeat_ok}
+    ok = repeat_ok
     for part, g, w, r in zip(("p", "w"), got, want, ref):
         scale = float(w.abs().max())
         if part == "w":
@@ -173,13 +212,10 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     # 4FPnS, the tridiagonal couplings 4FP, C 2nS^2, and 11 (FP + nS) for
     # the preconditioner, two dots and three updates (rtol 0 on the main
     # path: every step runs)
-    n_w, f, p = args[5].shape
-    n_s = args[6].shape[-1]
     flops = iters * n_w * (2 * f * p * p + 4 * f * p * n_s + 4 * f * p
                            + 2 * n_s * n_s + 11 * (f * p + n_s))
     out["bound_ms"], out["bound_by"] = bound(nbytes(*args, *got), flops)
-    out["ms"] = cuda_ms(lambda: cg.arrow_pcg(*args, iters=iters, rtol=rtol),
-                        reps[0])
+    out["ms"] = cuda_ms(kernel, reps[0])
     out["plain_ms"] = cuda_ms(
         lambda: cg.arrow_pcg_torch(*args, iters=iters, rtol=rtol), reps[1])
     rule = ("within 2x the plain f32 distance from f64" if real_system
@@ -187,6 +223,39 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     checks(ok, f"K1 {label}: kernel not {rule}")
     phase(f"{phase_no} k1_{label}", ok=ok, **out)
     return out
+
+
+def k1_layouts(rng, dev, checks):
+    """K1's time at the two stage shapes under each cluster size of
+    K1_LAYOUTS and under the plan's own choice, on one random system per
+    shape, in turns (sizes in order, then in reverse), each held to
+    K1_TOL against the plain version."""
+    import torch
+    from smpltpu_torch.ops import cg
+    for (n_w, f), sizes in K1_LAYOUTS.items():
+        args = random_arrow_system(rng, n_w, f, dev)
+        want = cg.arrow_pcg_torch(*args, iters=CG_ITERS)
+        limits = cg.device_limits(dev)
+        chosen = cg.k1_plan(n_w, f, 76, 10, **limits).cluster
+        plans = {c: cg.k1_plan(n_w, f, 76, 10, **limits, cluster=c)
+                 for c in sizes if c <= limits["max_cluster"]}
+        ms = {c: [] for c in plans}
+        for c in list(plans) + list(plans)[::-1]:
+            ms[c].append(cuda_ms(lambda: cg.arrow_pcg_planned(
+                plans[c], *args, iters=CG_ITERS), 10))
+        errs = {}
+        for c, plan in plans.items():
+            got = cg.arrow_pcg_planned(plan, *args, iters=CG_ITERS)
+            ok = all(bool(torch.all((g - w).abs() <= K1_TOL * max(
+                float(w.abs().max()), 1.0) + K1_TOL * w.abs()))
+                for g, w in zip(got, want))
+            checks(ok, f"K1 layout {n_w}x{f} cluster {c}: not within K1_TOL")
+            errs[c] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        phase(f"3 k1_layouts_{n_w}x{f}", plan_cluster=chosen,
+              ms={str(c): v for c, v in ms.items()},
+              max_abs_err={str(c): v for c, v in errs.items()},
+              plans={str(c): p._asdict() for c, p in plans.items()})
+        del args, want
 
 
 def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
@@ -349,6 +418,33 @@ def coverage_agreement(cov_dev, cov_host):
         return out
     return ((cov_dev & dil(cov_host)).sum() / max(cov_dev.sum(), 1),
             (cov_host & dil(cov_dev)).sum() / max(cov_host.sum(), 1))
+
+
+def fit_profile(run, args):
+    """Phase 5 fit_profile: one more fit under torch.profiler; the device's
+    busy time (the sum of its kernels' self time), K1's share and launches,
+    and the idle share of the profiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    k1 = [e for e in dev if "arrow_pcg_kernel" in e.key]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    phase("5 fit_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+          idle_share=1.0 - busy_ms / wall_ms,
+          k1_ms=sum(e.self_device_time_total for e in k1) / 1e3,
+          k1_launches=sum(e.count for e in k1),
+          device_launches=sum(e.count for e in dev),
+          top_kernels_ms=[[e.key[:90], e.self_device_time_total / 1e3,
+                           e.count] for e in top])
 
 
 def render_phase(w, frame_params, shp, verts, fit_s, checks):
@@ -525,20 +621,16 @@ def main():
     phase("2 build", built=info["built"], seconds=info["seconds"],
           ptxas=ptxas)
 
-    # 3. K1 vs plain on random systems
+    # 3. K1 vs plain on random systems, then the layouts
     rng = np.random.default_rng(1)
-    n_win = len(range(0, N_FRAMES, WSIZE - OVERLAP))
-    k1_compare("stage2_random", random_arrow_system(rng, n_win, WSIZE, dev),
-               CG_ITERS, 0.0, checks)
-    k1_compare("stage1_random",
-               random_arrow_system(rng, 1, N_FRAMES // SKIP, dev),
-               CG_ITERS, 0.0, checks)
-    k1_compare("stage2_rtol",
-               random_arrow_system(rng, n_win, WSIZE, dev, scale=3.0),
-               CG_ITERS, 0.05, checks)
-    # 160 frames: the vectors no longer fit in shared memory
-    k1_compare("global_scratch", random_arrow_system(rng, 2, 160, dev),
-               CG_ITERS, 0.0, checks, reps=(3, 1))
+    phase("3 k1_limits", **cg.device_limits(dev))
+    for label, n_w, f, n_s, rtol, cluster in K1_SWEEP:
+        sys_args = random_arrow_system(rng, n_w, f, dev, n_s=n_s,
+                                       scale=3.0 if rtol else 1.0)
+        k1_compare(label, sys_args, CG_ITERS, rtol, checks, reps=(5, 1),
+                   cluster=cluster)
+        del sys_args
+    k1_layouts(rng, dev, checks)
 
     # 4. K2 vs plain, 100 frames of the full-width model
     from smpltpu_torch.models import SMPLModel, make_synthetic_model
@@ -620,10 +712,17 @@ def main():
         w["cam"])
     eval_s = time.perf_counter() - t0
     k1_launches, k2_launches = LAUNCHES["arrow_pcg"], LAUNCHES["lbs"]
+    k1_stage = {"stage1": LAUNCHES[f"arrow_pcg@1x{len(w['anchor_idx'])}"],
+                "stage2": LAUNCHES[f"arrow_pcg@{len(w['starts'])}x{WSIZE}"]}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     trips1, trips2 = int(st1.iters_run), int(st2.iters_run.max())
     checks(k1_launches == trips1 + trips2,
            f"K1 launches {k1_launches} != loop trips {trips1} + {trips2}")
+    checks(k1_stage["stage1"] == trips1 and k1_stage["stage2"] == trips2,
+           f"K1 launches by stage {k1_stage} != trips {trips1}, {trips2}")
+    s1_plan = k1_main["stage1_first_lm_iter"]["plan"]
+    checks(s1_plan["cluster"] > 1,
+           f"stage 1's K1 plan runs on one SM: {s1_plan}")
     checks(k2_launches > 0, "K2 was not launched on the main path")
     residual = full_batch_residual(w, frame_params, shp)
     checks(np.isfinite(residual) and residual <= RESIDUAL_MAX_PX,
@@ -638,8 +737,8 @@ def main():
           stage2_iters_run_max=trips2,
           stage2_iters_run_mean=float(st2.iters_run.float().mean()),
           stage2_converged=int(st2.converged.sum()),
-          k1_launches=k1_launches, k2_launches=k2_launches,
-          full_batch_residual_px=residual,
+          k1_launches=k1_launches, k1_launches_by_stage=k1_stage,
+          k2_launches=k2_launches, full_batch_residual_px=residual,
           eval_mean_px=float(np.mean(err)), eval_s=eval_s,
           peak_gib=peak_gib)
 
@@ -650,6 +749,7 @@ def main():
         covered.append(int(np.count_nonzero(img.any(axis=-1))))
     checks(all(c > 0 for c in covered), f"rendered coverage {covered}")
     phase("5 render", frames=[0, n // 2], covered_px=covered)
+    fit_profile(run, w["args"])
 
     # the same fit with the plain PCG loop
     run_plain = build_fit(w, "pcg", dev)
@@ -678,15 +778,19 @@ def main():
         print(f"chip_smoke: {len(checks.failed)} check(s) failed: "
               f"{checks.failed}", flush=True)
         return 1
-    s2 = k1_main["stage2_first_lm_iter"]
-    print(json.dumps({"kernels": [
-        {"name": "arrow_pcg", "route": "cuda",
+    # K1 at each stage's shape, on that stage's first real system; its
+    # launches are the main path's count at that shape
+    k1_lines = [
+        {"name": f"arrow_pcg_{stage}", "route": "cuda",
          "source": "smpltpu_torch/csrc/arrow_pcg.cu",
-         "replaces": "smpltpu/ops/cg.py:146", "launches": k1_launches,
-         "max_abs_err": max(s2["max_abs_err_p"], s2["max_abs_err_w"]),
-         "ms": s2["ms"], "plain_ms": s2["plain_ms"],
-         "bound_ms": s2["bound_ms"], "bound_by": s2["bound_by"],
-         "library_ms": None},
+         "replaces": "smpltpu/ops/cg.py:146", "launches": k1_stage[stage],
+         "max_abs_err": max(c["max_abs_err_p"], c["max_abs_err_w"]),
+         "ms": c["ms"], "plain_ms": c["plain_ms"],
+         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+         "library_ms": None}
+        for stage, c in (("stage1", k1_main["stage1_first_lm_iter"]),
+                         ("stage2", k1_main["stage2_first_lm_iter"]))]
+    print(json.dumps({"kernels": k1_lines + [
         {"name": "lbs", "route": "cuda", "source": "smpltpu_torch/csrc/lbs.cu",
          "replaces": "smpltpu/ops/lbs.py:88", "launches": k2_launches,
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],

@@ -29,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "smpltpu_arrow_pcg_f32": (_I, [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P]),
-    "smpltpu_arrow_pcg_scratch_floats": (ctypes.c_longlong, [_I] * 3),
+    "smpltpu_arrow_pcg_f32": (_I, [_P] * 10 + [_I] * 5 + [ctypes.c_float]
+                              + [_I] * 6 + [_P]),
+    "smpltpu_arrow_pcg_limits": (_I, [_P]),
     "smpltpu_lbs_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "smpltpu_raster_i32": (_I, [_P] * 4 + [_I] * 5 + [_P] * 4),
 }

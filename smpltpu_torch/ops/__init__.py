@@ -4,8 +4,9 @@ K3, the z-buffer rasterizer, lives with the render stage
 (``smpltpu_torch/render/zbuffer.py``).
 
 ``LAUNCHES`` counts kernel launches by wrapper name ("arrow_pcg", "lbs",
-"raster"): each wrapper adds one where it launches its kernel and nowhere
-else, so a run can show that it went through the kernels."""
+"raster"; K1 also under "arrow_pcg@{W}x{F}", by system shape): each
+wrapper adds one where it launches its kernel and nowhere else, so a run
+can show that it went through the kernels."""
 
 from collections import Counter
 

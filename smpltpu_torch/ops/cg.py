@@ -12,6 +12,11 @@ replaces the TPU kernel ``smpltpu/ops/cg.py::arrow_pcg_pallas``; in eager
 PyTorch the plain loop below costs about 25 launches per CG step. The
 source note in the ``.cu`` file says what bounds the kernel on the card.
 
+The kernel spreads each window over a thread-block cluster. How (cluster
+size, frames per CTA, how many of them sit in shared memory, the shared
+bytes and the scratch) is decided here, by the plain function
+``k1_plan``, from device limits read once; the C code only launches it.
+
 ``arrow_pcg_torch`` is the plain version: the XLA loop of
 ``smpltpu/solve/multi_frame.py`` (arrow_pcg, :366-438) batched over a
 leading window axis W, in any dtype. The wrapper takes it only for CPU
@@ -19,6 +24,9 @@ tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as tnf
@@ -93,6 +101,120 @@ def arrow_pcg_torch(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
     return x_p, x_w
 
 
+# the kernel's shared-memory layout (csrc/arrow_pcg.cu): a header of
+# kHeader floats, kVecs vectors of vec_len floats, then the resident frames'
+# D (P x P) and B (P x nS) blocks
+K1_HEADER_FLOATS = 1280
+K1_VECS = 6
+K1_MAX_SHAPES = 16
+K1_MAX_CLUSTER = 16
+K1_MAX_P = 128           # the halo buffers' size
+# the layout estimate's costs per CG step, in units of one resident
+# frame's matvec: a frame whose D and B stream from L2, and the cross-CTA
+# exchanges of a cluster larger than one CTA
+K1_COST_STREAMED = 3.0
+K1_COST_CLUSTER = 7.0
+
+
+class K1Plan(NamedTuple):
+    """One launch of K1: ``cluster`` CTAs per window, rank r owning the
+    frames of ``k1_frame_ranges(F, cluster)[r]`` (at most
+    ``frames_per_cta``), the first ``resident_frames`` of them with D and B
+    in shared memory; each vector of a CTA ``vec_len`` floats, in shared
+    memory or, if not ``vec_in_smem``, in ``scratch_floats`` of global
+    scratch; ``smem_bytes`` of dynamic shared memory per CTA."""
+    cluster: int
+    frames_per_cta: int
+    resident_frames: int
+    vec_len: int
+    vec_in_smem: bool
+    smem_bytes: int
+    scratch_floats: int
+
+
+def k1_frame_ranges(n_frames: int, cluster: int) -> list:
+    """[f0, f1) of each rank: the kernel's split r*F//c .. (r+1)*F//c."""
+    return [(r * n_frames // cluster, (r + 1) * n_frames // cluster)
+            for r in range(cluster)]
+
+
+def _k1_layout(n_win, n_frames, p, n_s, smem_per_block, cluster) -> K1Plan:
+    """The plan for a given cluster size: as many of a CTA's frames
+    resident as fit beside the header and the vectors."""
+    fpc = -(-n_frames // cluster)
+    vec_len = -(-fpc * p // 4) * 4
+    vec_bytes = 4 * K1_VECS * vec_len
+    avail = smem_per_block - 4 * K1_HEADER_FLOATS
+    if avail < 0:
+        raise ValueError(f"k1_plan: {smem_per_block} B of shared memory per "
+                         f"block is less than the kernel's header")
+    vec_in_smem = vec_bytes <= avail
+    if vec_in_smem:
+        avail -= vec_bytes
+    frame_bytes = 4 * p * (p + n_s)
+    n_res = min(fpc, avail // frame_bytes)
+    smem = (4 * K1_HEADER_FLOATS + (vec_bytes if vec_in_smem else 0)
+            + n_res * frame_bytes)
+    scratch = 0 if vec_in_smem else n_win * cluster * K1_VECS * vec_len
+    return K1Plan(cluster, fpc, n_res, vec_len, vec_in_smem, smem, scratch)
+
+
+def k1_plan(n_win: int, n_frames: int, p: int, n_s: int, smem_per_block: int,
+            max_cluster: int, n_sm: int = 132, cluster: int | None = None
+            ) -> K1Plan:
+    """K1's launch plan for W = ``n_win`` windows of F = ``n_frames``
+    frames, on a device with ``smem_per_block`` bytes of opt-in shared
+    memory per block, ``n_sm`` SMs and clusters of up to ``max_cluster``
+    CTAs. ``cluster`` forces the cluster size (to measure layouts);
+    otherwise the size with the least estimated time is taken: per CG step
+    a resident frame costs 1, a streamed one K1_COST_STREAMED, the
+    cross-CTA exchanges K1_COST_CLUSTER, times the waves of W * c CTAs at
+    one CTA per SM (ties to the larger cluster)."""
+    if not 1 <= n_s <= K1_MAX_SHAPES:
+        raise ValueError(f"k1_plan: nS must be 1..{K1_MAX_SHAPES}, got {n_s}")
+    if n_win < 1 or n_frames < 1 or not 1 <= p <= K1_MAX_P:
+        raise ValueError(f"k1_plan: W={n_win} F={n_frames} P={p}: need W, F "
+                         f">= 1 and 1 <= P <= {K1_MAX_P}")
+    top = min(max_cluster, n_frames, K1_MAX_CLUSTER)
+    if top < 1:
+        raise ValueError(f"k1_plan: no cluster size fits (max {max_cluster})")
+    if cluster is not None:
+        if not 1 <= cluster <= top:
+            raise ValueError(f"k1_plan: cluster {cluster} not in 1..{top}")
+        return _k1_layout(n_win, n_frames, p, n_s, smem_per_block, cluster)
+    best = None
+    for c in range(1, top + 1):
+        plan = _k1_layout(n_win, n_frames, p, n_s, smem_per_block, c)
+        waves = -(-n_win // max(n_sm // c, 1))
+        streamed = plan.frames_per_cta - plan.resident_frames
+        cost = waves * (plan.resident_frames + K1_COST_STREAMED * streamed
+                        + (K1_COST_CLUSTER if c > 1 else 0.0))
+        if best is None or (cost, -c) < best[0]:
+            best = ((cost, -c), plan)
+    return best[1]
+
+
+_LIMITS: dict = {}
+
+
+def device_limits(device: torch.device) -> dict:
+    """The device's opt-in shared memory per block, SM count and largest
+    schedulable cluster at that shared memory, read once per device (the
+    call also sets the kernel's attributes)."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _LIMITS:
+        lib = _build.load()
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(idx):
+            err = lib.smpltpu_arrow_pcg_limits(out)
+        if err != 0:
+            raise RuntimeError(f"arrow_pcg: reading the device limits failed "
+                               f"with CUDA error {err}")
+        _LIMITS[idx] = {"smem_per_block": out[0], "n_sm": out[1],
+                        "max_cluster": out[2]}
+    return _LIMITS[idx]
+
+
 def _check(name, t, shape, dtype, device):
     if t.dtype != dtype or t.device != device or tuple(t.shape) != shape:
         raise ValueError(f"arrow_pcg: {name} must be {dtype} {tuple(shape)} on "
@@ -113,6 +235,20 @@ def arrow_pcg(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
     if dev.type != "cuda":
         raise ValueError(f"arrow_pcg: no kernel for device {dev}")
     w, f, p = g_p.shape
+    plan = k1_plan(w, f, p, g_w.shape[-1], **device_limits(dev))
+    return arrow_pcg_planned(plan, d_blocks, off_scale, tmask, b_pw, c_reg,
+                             g_p, g_w, iters, rtol)
+
+
+def arrow_pcg_planned(plan: K1Plan, d_blocks, off_scale, tmask, b_pw, c_reg,
+                      g_p, g_w, iters: int, rtol: float = 0.0):
+    """Launch K1 with a given plan (CUDA tensors only). Besides
+    ``LAUNCHES["arrow_pcg"]`` it counts the launch under
+    ``"arrow_pcg@{W}x{F}"``, so a run can tell the fit's two stages apart."""
+    dev = g_p.device
+    if dev.type != "cuda":
+        raise ValueError(f"arrow_pcg: no kernel for device {dev}")
+    w, f, p = g_p.shape
     n_s = g_w.shape[-1]
     f32 = torch.float32
     for name, t, shape in (("d_blocks", d_blocks, (w, f, p, p)),
@@ -126,16 +262,21 @@ def arrow_pcg(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
     lib = _build.load()
     dp = torch.empty_like(g_p)
     dw = torch.empty_like(g_w)
-    n_scratch = lib.smpltpu_arrow_pcg_scratch_floats(w, f, p)
-    scratch = torch.empty(max(n_scratch, 1), dtype=f32, device=dev)
+    scratch = (torch.empty(plan.scratch_floats, dtype=f32, device=dev)
+               if plan.scratch_floats else None)
+    aligned = d_blocks.data_ptr() % 16 == 0
     err = lib.smpltpu_arrow_pcg_f32(
         d_blocks.data_ptr(), off_scale.data_ptr(), tmask.data_ptr(),
         b_pw.data_ptr(), c_reg.data_ptr(), g_p.data_ptr(), g_w.data_ptr(),
-        dp.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+        dp.data_ptr(), dw.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         w, f, p, n_s, int(iters), float(rtol) * float(rtol),
+        plan.cluster, plan.resident_frames, plan.vec_len,
+        int(plan.vec_in_smem), int(aligned), plan.smem_bytes,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"arrow_pcg: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"arrow_pcg: kernel launch failed with CUDA error "
+                           f"{err} for W={w} F={f} P={p} nS={n_s}, {plan}")
     LAUNCHES["arrow_pcg"] += 1
+    LAUNCHES[f"arrow_pcg@{w}x{f}"] += 1
     return dp, dw
-

@@ -25,18 +25,21 @@ CPU = torch.device("cpu")
 F, P, NS = 6, 76, 10
 
 
-def _system(rng, scale=1.0):
+def _system(rng, scale=1.0, f=F):
     """Random SPD arrowhead system in the solver's block layout (float32,
-    the layout of tests/test_cg_kernel.py)."""
-    a = rng.normal(size=(F, P, P)).astype(np.float32) * 0.1
+    the layout of tests/test_cg_kernel.py); past F = 6 frames B shrinks by
+    sqrt(6/F), so the shape Schur complement stays as far from singular."""
+    a = rng.normal(size=(f, P, P)).astype(np.float32) * 0.1
     d = np.einsum("fab,fcb->fac", a, a) + 2.0 * np.eye(P, dtype=np.float32)
-    off = (-np.abs(rng.normal(size=F - 1)) * 0.05 * scale).astype(np.float32)
+    off = (-np.abs(rng.normal(size=f - 1)) * 0.05 * scale).astype(np.float32)
     tm = np.ones(P, np.float32)
     tm[0] = 0.0
-    b = rng.normal(size=(F, P, NS)).astype(np.float32) * 0.05
+    b = rng.normal(size=(f, P, NS)).astype(np.float32) * 0.05
+    if f > F:
+        b = b * np.float32(np.sqrt(F / f))
     cw = rng.normal(size=(NS, NS)).astype(np.float32) * 0.1
     c = cw @ cw.T + 1.5 * np.eye(NS, dtype=np.float32)
-    gp = rng.normal(size=(F, P)).astype(np.float32)
+    gp = rng.normal(size=(f, P)).astype(np.float32)
     gw = rng.normal(size=NS).astype(np.float32)
     return d, off, tm, b, c, gp, gw
 
@@ -60,13 +63,20 @@ def _assert_pcg_close(got_p, got_w, want_p, want_w):
                                rtol=2e-4)
 
 
-@pytest.mark.parametrize("rtol,iters", [(0.0, 32), (0.2, 24), (1e-12, 16)])
-def test_pcg_plain_matches_pallas_kernel(rtol, iters):
-    """A batch of three windows of different coupling strength through the
-    plain batched PCG, against the Pallas kernel window by window (fixed
-    trip count, a loose tolerance exit, and one that never fires)."""
+@pytest.mark.parametrize("rtol,iters,f,n_win", [
+    pytest.param(0.0, 32, F, 3, id="0.0-32"),
+    pytest.param(0.2, 24, F, 3, id="0.2-24"),
+    pytest.param(1e-12, 16, F, 3, id="1e-12-16"),
+    # the stage-1 shape (one window of 100 frames) that K1's cluster
+    # layout targets
+    pytest.param(0.0, 6, 100, 1, id="stage1-f100-6"),
+])
+def test_pcg_plain_matches_pallas_kernel(rtol, iters, f, n_win):
+    """Windows of different coupling strength through the plain batched
+    PCG, against the Pallas kernel window by window (fixed trip count, a
+    loose tolerance exit, one that never fires, and the stage-1 shape)."""
     rng = np.random.default_rng(11)
-    systems = [_system(rng, scale=float(k + 1)) for k in range(3)]
+    systems = [_system(rng, scale=float(k + 1), f=f) for k in range(n_win)]
     got_p, got_w = cg.arrow_pcg_torch(*_batch(systems), iters=iters, rtol=rtol)
     assert got_p.dtype == torch.float32
     for k, s in enumerate(systems):
