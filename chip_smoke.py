@@ -14,11 +14,13 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
 3. K1 (arrowhead PCG) against its plain PyTorch version in float32 on
    random SPD arrowhead systems, 40 CG steps: a sweep over window counts
    W in {1, 3, 67}, frames per window F in {1, 7, 20, 33, 100, 150, 160,
-   400} and nS in {10, 16}, with the tolerance exit and a forced one-CTA
-   plan whose vectors live in global scratch; each case printed with its
-   launch plan (cluster size, resident frames, shared bytes), run twice
-   and required bitwise identical. Then the stage-2 (67 x 20) and stage-1
-   (1 x 100) shapes timed under several cluster sizes (the layouts).
+   400}, nS in {7, 10, 16} and P in {76, 31} (the fit's 76, and the small
+   model's 31, which is not a multiple of 4), with the tolerance exit and
+   a forced one-CTA plan whose vectors live in global scratch; each case
+   printed with its launch plan (cluster size, resident frames, shared
+   bytes), run twice and required bitwise identical. Then the stage-2
+   (67 x 20) and stage-1 (1 x 100) shapes timed under the plan's cluster
+   size and one alternative (the layouts).
 4. K2 (blendshapes + skinning) against its plain version, 100 frames of
    the full-width model; both times.
 5. the main path: the 1000-frame synthetic workload of bench.py through
@@ -26,11 +28,8 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    whose first LM iteration's K1 systems, one per stage, are also checked
    against the plain version: see ``k1_compare`` for the tolerance on
    these ill-conditioned systems; then a timed run), write-back, skinning
-   of all frames
-   through K2, two frames rendered with the host painter; one more fit
-   under torch.profiler (device busy ms, K1's ms and launches, the idle
-   share); then the same fit with the plain PCG, which must land within
-   0.1 px.
+   of all frames through K2, two frames rendered with the host painter;
+   then the same fit with the plain PCG, which must land within 0.1 px.
 6. the render stage: K3 (the z-buffer rasterizer) against its plain
    version, pixel-exact, on one triangle, an occluding pair, culled faces,
    a mesh partly off screen, a near face over most of the frame and 8
@@ -38,6 +37,15 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    all 1000 fitted frames rendered through K2 -> K3 on the device
    (``render_frames``), with the launch counts of that run, every frame's
    coverage, and two frames held against the host painter's coverage.
+7. one more fit under torch.profiler (phase ``5 fit_profile``: device
+   busy ms, K1's ms and launches, the idle share), last, so that the
+   profiler's cost touches none of the timings above.
+
+    python3 chip_smoke.py --k1-layouts
+
+times K1 instead under every cluster size at the stage shapes and a few
+others (phases 1-3, no main path and no result line): the measurement
+behind ``ops/cg.py::k1_plan``'s rule.
 
 Every kernel's line carries its bound: the larger of its bytes (inputs
 read once, outputs written once) over 3.35 TB/s and its float32
@@ -67,25 +75,31 @@ H_R, W_R = 1280, 720          # render size: the bench camera at full size
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12
-# phase 3's K1 cases: (label, windows W, frames F, shapes nS, rtol, forced
-# cluster size or None for the plan's own choice)
+# phase 3's K1 cases: (label, windows W, frames F, row block P, shapes nS,
+# rtol, forced cluster size or None for the plan's own choice)
 K1_SWEEP = (
-    ("stage2", 67, 20, 10, 0.0, None),
-    ("stage1", 1, 100, 10, 0.0, None),
-    ("stage2_rtol", 67, 20, 10, 0.05, None),
-    ("f1", 1, 1, 10, 0.0, None),
-    ("f7_ns16", 3, 7, 16, 0.0, None),
-    ("f20_w1_ns16", 1, 20, 16, 0.0, None),
-    ("f33", 3, 33, 10, 0.0, None),
-    ("stage1_ns16", 1, 100, 16, 0.0, None),
-    ("f150", 1, 150, 10, 0.0, None),
-    ("f160_ns16", 3, 160, 16, 0.0, None),
-    ("f400", 1, 400, 10, 0.0, None),
-    ("f400_rtol", 1, 400, 16, 0.05, None),
-    ("f160_one_cta_scratch", 2, 160, 10, 0.0, 1),
+    ("stage2", 67, 20, 76, 10, 0.0, None),
+    ("stage1", 1, 100, 76, 10, 0.0, None),
+    ("stage2_rtol", 67, 20, 76, 10, 0.05, None),
+    ("f1", 1, 1, 76, 10, 0.0, None),
+    ("f7_ns16", 3, 7, 76, 16, 0.0, None),
+    ("f20_w1_ns16", 1, 20, 76, 16, 0.0, None),
+    ("f33", 3, 33, 76, 10, 0.0, None),
+    ("stage1_ns16", 1, 100, 76, 16, 0.0, None),
+    ("f150", 1, 150, 76, 10, 0.0, None),
+    ("f160_ns16", 3, 160, 76, 16, 0.0, None),
+    ("f400", 1, 400, 76, 10, 0.0, None),
+    ("f400_rtol", 1, 400, 76, 16, 0.05, None),
+    ("f160_one_cta_scratch", 2, 160, 76, 10, 0.0, 1),
+    ("p31_f100", 1, 100, 31, 10, 0.0, None),
+    ("p31_f33_ns7", 3, 33, 31, 7, 0.0, None),
 )
-# cluster sizes timed at the two stage shapes (phase 3 layouts)
-K1_LAYOUTS = {(67, 20): (1, 2, 3, 4, 5), (1, 100): (8, 15, 16)}
+# phase 3 layouts: at each stage shape, the plan's cluster size and this
+# alternative (one CTA per window in one wave; the largest cluster)
+K1_ALTERNATIVE = {(67, 20): 1, (1, 100): 16}
+# --k1-layouts: every cluster size at these (W, F, P) shapes
+K1_LAYOUT_SHAPES = ((67, 20, 76), (1, 100, 76), (3, 33, 76), (1, 150, 76),
+                    (1, 400, 76), (1, 100, 31))
 
 
 def bound(n_bytes, n_flops):
@@ -99,7 +113,12 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+T_START = time.perf_counter()
+
+
 def phase(label, /, **fields):
+    """One phase's line; ``at_s`` is the script's wall time when it ends."""
+    fields["at_s"] = time.perf_counter() - T_START
     print(f"phase {label}: {json.dumps(fields)}", flush=True)
 
 
@@ -225,20 +244,26 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     return out
 
 
-def k1_layouts(rng, dev, checks):
-    """K1's time at the two stage shapes under each cluster size of
-    K1_LAYOUTS and under the plan's own choice, on one random system per
-    shape, in turns (sizes in order, then in reverse), each held to
-    K1_TOL against the plain version."""
+def k1_layouts(rng, dev, checks, every=False):
+    """K1's time under the plan's cluster size and K1_ALTERNATIVE's at the
+    two stage shapes or, ``every``, under every cluster size at
+    K1_LAYOUT_SHAPES; on one random system per shape, in turns (sizes in
+    order, then in reverse), each held to K1_TOL against the plain
+    version."""
     import torch
     from smpltpu_torch.ops import cg
-    for (n_w, f), sizes in K1_LAYOUTS.items():
-        args = random_arrow_system(rng, n_w, f, dev)
+    limits = cg.device_limits(dev)
+    shapes = (K1_LAYOUT_SHAPES if every
+              else [(n_w, f, 76) for n_w, f in K1_ALTERNATIVE])
+    for n_w, f, p in shapes:
+        args = random_arrow_system(rng, n_w, f, dev, p=p)
         want = cg.arrow_pcg_torch(*args, iters=CG_ITERS)
-        limits = cg.device_limits(dev)
-        chosen = cg.k1_plan(n_w, f, 76, 10, **limits).cluster
-        plans = {c: cg.k1_plan(n_w, f, 76, 10, **limits, cluster=c)
-                 for c in sizes if c <= limits["max_cluster"]}
+        chosen = cg.k1_plan(n_w, f, p, 10, **limits).cluster
+        top = min(limits["max_cluster"], f)
+        sizes = (range(1, top + 1) if every
+                 else sorted({chosen, min(K1_ALTERNATIVE[n_w, f], top)}))
+        plans = {c: cg.k1_plan(n_w, f, p, 10, **limits, cluster=c)
+                 for c in sizes}
         ms = {c: [] for c in plans}
         for c in list(plans) + list(plans)[::-1]:
             ms[c].append(cuda_ms(lambda: cg.arrow_pcg_planned(
@@ -251,7 +276,7 @@ def k1_layouts(rng, dev, checks):
                 for g, w in zip(got, want))
             checks(ok, f"K1 layout {n_w}x{f} cluster {c}: not within K1_TOL")
             errs[c] = max(float((g - w).abs().max()) for g, w in zip(got, want))
-        phase(f"3 k1_layouts_{n_w}x{f}", plan_cluster=chosen,
+        phase(f"3 k1_layouts_{n_w}x{f}_p{p}", plan_cluster=chosen,
               ms={str(c): v for c, v in ms.items()},
               max_abs_err={str(c): v for c, v in errs.items()},
               plans={str(c): p._asdict() for c, p in plans.items()})
@@ -420,16 +445,19 @@ def coverage_agreement(cov_dev, cov_host):
             (cov_host & dil(cov_dev)).sum() / max(cov_host.sum(), 1))
 
 
-def fit_profile(run, args):
-    """Phase 5 fit_profile: one more fit under torch.profiler; the device's
-    busy time (the sum of its kernels' self time), K1's share and launches,
-    and the idle share of the profiled wall time."""
+def fit_profile(run, args, k1_launches, checks):
+    """Phase 5 fit_profile, run after phase 6: one more fit under
+    torch.profiler, device activity only (the host's operators are not
+    recorded, which keeps the profiler's cost out of the wall time); the
+    device's busy time
+    (the sum of its kernels' self time), K1's share and launches, which
+    must be the main path's, and the idle share of the profiled wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(*args)
         torch.cuda.synchronize()
@@ -437,11 +465,15 @@ def fit_profile(run, args):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     k1 = [e for e in dev if "arrow_pcg_kernel" in e.key]
+    k1_seen = sum(e.count for e in k1)
+    checks(busy_ms > 0 and k1_seen == k1_launches,
+           f"profiled fit: {busy_ms} ms busy, {k1_seen} K1 launches seen, "
+           f"{k1_launches} on the main path")
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     phase("5 fit_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
           idle_share=1.0 - busy_ms / wall_ms,
           k1_ms=sum(e.self_device_time_total for e in k1) / 1e3,
-          k1_launches=sum(e.count for e in k1),
+          k1_launches=k1_seen,
           device_launches=sum(e.count for e in dev),
           top_kernels_ms=[[e.key[:90], e.self_device_time_total / 1e3,
                            e.count] for e in top])
@@ -580,7 +612,7 @@ def render_phase(w, frame_params, shp, verts, fit_s, checks):
     return k3, k3_launches
 
 
-def main():
+def main(argv):
     import torch
 
     if not torch.cuda.is_available():
@@ -624,8 +656,13 @@ def main():
     # 3. K1 vs plain on random systems, then the layouts
     rng = np.random.default_rng(1)
     phase("3 k1_limits", **cg.device_limits(dev))
-    for label, n_w, f, n_s, rtol, cluster in K1_SWEEP:
-        sys_args = random_arrow_system(rng, n_w, f, dev, n_s=n_s,
+    if argv == ["--k1-layouts"]:
+        k1_layouts(rng, dev, checks, every=True)
+        return 1 if checks.failed else 0
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv}")
+    for label, n_w, f, p, n_s, rtol, cluster in K1_SWEEP:
+        sys_args = random_arrow_system(rng, n_w, f, dev, p=p, n_s=n_s,
                                        scale=3.0 if rtol else 1.0)
         k1_compare(label, sys_args, CG_ITERS, rtol, checks, reps=(5, 1),
                    cluster=cluster)
@@ -749,7 +786,6 @@ def main():
         covered.append(int(np.count_nonzero(img.any(axis=-1))))
     checks(all(c > 0 for c in covered), f"rendered coverage {covered}")
     phase("5 render", frames=[0, n // 2], covered_px=covered)
-    fit_profile(run, w["args"])
 
     # the same fit with the plain PCG loop
     run_plain = build_fit(w, "pcg", dev)
@@ -770,6 +806,7 @@ def main():
 
     k3, k3_launches = render_phase(w, frame_params, shp, verts, fit_s,
                                    checks)
+    fit_profile(run, w["args"], k1_launches, checks)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "smpltpu"))
@@ -810,4 +847,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -56,6 +56,14 @@
 //   Every CTA sums the ranks' partials in rank order from its own copy,
 //   so alpha, beta and the rtol exit are bitwise identical in all CTAs
 //   and from run to run (no float atomics).
+// - Buffer reuse. A wait on an mbarrier only says that this CTA's data
+//   has come in; other warps of the CTA may still be reading their own
+//   buffers to send elsewhere. So each exchange has buffers (block
+//   slots, gather slots) of its own, and a buffer is written again only
+//   after a __syncthreads() that comes after every read of it in the
+//   same threads; a remote CTA writes a gather or halo buffer again only
+//   after it has this CTA's next exchange, which this CTA sends after
+//   such a __syncthreads().
 // - The shape block (nS <= 16: C d_w, the scalars) is computed
 //   redundantly by every CTA.
 // The launch plan (cluster size, resident frames, shared bytes, scratch)
@@ -75,9 +83,10 @@ constexpr int kMaxShapes = 16;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxP = 128;               // halo buffers hold one frame each
 constexpr int kRed = kMaxShapes + 1;     // slots of the first reduction
-// block-reduction slots: a warp's d.q and nS column sums, or its two
-// values of the second reduction
-constexpr int kRedSlots = 2 * kWarps + kMaxShapes;
+// block-reduction slots: each warp's d.q and the nS column sums (the
+// first reduction), then each warp's two values of the second, in slots
+// of their own (see "Buffer reuse" above)
+constexpr int kRedSlots = kWarps + kMaxShapes + 2 * kWarps;
 // shared header, in floats: three mbarriers, block-reduction slots, the
 // shape-block vectors, the gather buffers the cluster's CTAs write their
 // partial sums into, C, and the two halo frames
@@ -284,6 +293,7 @@ arrow_pcg_kernel(const float* __restrict__ d_all,    // (W, F, P, P)
   float* gather_a = smem + 8;               // (kRed, kMaxCluster)
   float* gather_b = gather_a + kRed * kMaxCluster;   // (2, kMaxCluster)
   float* red = gather_b + 2 * kMaxCluster;  // kRedSlots
+  float* red_b = red + kWarps + kMaxShapes; // the second reduction's
   float* xw = red + kRedSlots;              // shape-block vectors
   float* rw = xw + kMaxShapes;
   float* dw = rw + kMaxShapes;
@@ -363,13 +373,13 @@ arrow_pcg_kernel(const float* __restrict__ d_all,    // (W, F, P, P)
   // cluster's, which then sum in rank order.
   auto reduce_b = [&](unsigned parity) {
     const float v = warp_reduce2(part0, part1);
-    if ((lane & 15) == 0) red[warp * 2 + (lane >> 4)] = v;
+    if ((lane & 15) == 0) red_b[warp * 2 + (lane >> 4)] = v;
     __syncthreads();
     if (tid < 2 * cs) {                     // value tid & 1 to rank tid / 2
       const int k = tid & 1;
       float t = 0.f;
 #pragma unroll
-      for (int j = 0; j < kWarps; ++j) t += red[j * 2 + k];
+      for (int j = 0; j < kWarps; ++j) t += red_b[j * 2 + k];
       if (tid == 0) mbar_expect(bar_b, cs * 2 * sizeof(float));
       st_remote(gather_b + k * kMaxCluster + rank, t, bar_b, tid >> 1);
     }
@@ -563,20 +573,18 @@ cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int n_blocks,
 }  // namespace
 
 // The device limits the launch plan needs, read once by the wrapper:
-// out[0] the opt-in shared memory per block, out[1] the SM count, out[2]
-// the largest cluster size in {16, 8, 4, 2, 1} of which at least one
-// cluster can be resident with that much shared memory per block. Also
-// sets the kernels' attributes (dynamic shared memory up to the opt-in
-// maximum, non-portable cluster sizes), once for every later launch.
-// Returns a CUDA error code (0 on success).
+// out[0] the opt-in shared memory per block, out[1] the largest cluster
+// size in {16, 8, 4, 2, 1} of which at least one cluster can be resident
+// with that much shared memory per block. Also sets the kernels'
+// attributes (dynamic shared memory up to the opt-in maximum,
+// non-portable cluster sizes), once for every later launch. Returns a
+// CUDA error code (0 on success).
 extern "C" int smpltpu_arrow_pcg_limits(int* out) {
-  int dev = 0, optin = 0, n_sm = 0;
+  int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = set_attributes(arrow_pcg_kernel<kFitP, kFitShapes, true>, optin);
   if (e == cudaSuccess)
@@ -598,8 +606,7 @@ extern "C" int smpltpu_arrow_pcg_limits(int* out) {
   }
   cudaGetLastError();   // a refused cluster size leaves no sticky error
   out[0] = optin;
-  out[1] = n_sm;
-  out[2] = best;
+  out[1] = best;
   return best > 0 ? 0 : (int)cudaErrorInvalidConfiguration;
 }
 

@@ -26,6 +26,7 @@ tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -109,11 +110,7 @@ K1_VECS = 6
 K1_MAX_SHAPES = 16
 K1_MAX_CLUSTER = 16
 K1_MAX_P = 128           # the halo buffers' size
-# the layout estimate's costs per CG step, in units of one resident
-# frame's matvec: a frame whose D and B stream from L2, and the cross-CTA
-# exchanges of a cluster larger than one CTA
-K1_COST_STREAMED = 3.0
-K1_COST_CLUSTER = 7.0
+K1_THREADS = 544         # threads per CTA, one row of D each
 
 
 class K1Plan(NamedTuple):
@@ -159,17 +156,19 @@ def _k1_layout(n_win, n_frames, p, n_s, smem_per_block, cluster) -> K1Plan:
     return K1Plan(cluster, fpc, n_res, vec_len, vec_in_smem, smem, scratch)
 
 
+@functools.lru_cache(maxsize=None)
 def k1_plan(n_win: int, n_frames: int, p: int, n_s: int, smem_per_block: int,
-            max_cluster: int, n_sm: int = 132, cluster: int | None = None
-            ) -> K1Plan:
+            max_cluster: int, cluster: int | None = None) -> K1Plan:
     """K1's launch plan for W = ``n_win`` windows of F = ``n_frames``
     frames, on a device with ``smem_per_block`` bytes of opt-in shared
-    memory per block, ``n_sm`` SMs and clusters of up to ``max_cluster``
-    CTAs. ``cluster`` forces the cluster size (to measure layouts);
-    otherwise the size with the least estimated time is taken: per CG step
-    a resident frame costs 1, a streamed one K1_COST_STREAMED, the
-    cross-CTA exchanges K1_COST_CLUSTER, times the waves of W * c CTAs at
-    one CTA per SM (ties to the larger cluster)."""
+    memory per block and clusters of up to ``max_cluster`` CTAs; cached
+    per argument tuple, so a launch pays for it once per shape.
+    ``cluster`` forces the cluster size (to measure layouts); otherwise it
+    is the smallest whose CTAs hold all their frames in shared memory and
+    their rows in one pass of the block's K1_THREADS threads, else the
+    largest the device allows (PERF.md, K1 layouts: every frame resident
+    in one pass beats one wave with frames streamed from L2, and a larger
+    cluster only adds CTAs to the exchanges)."""
     if not 1 <= n_s <= K1_MAX_SHAPES:
         raise ValueError(f"k1_plan: nS must be 1..{K1_MAX_SHAPES}, got {n_s}")
     if n_win < 1 or n_frames < 1 or not 1 <= p <= K1_MAX_P:
@@ -182,36 +181,31 @@ def k1_plan(n_win: int, n_frames: int, p: int, n_s: int, smem_per_block: int,
         if not 1 <= cluster <= top:
             raise ValueError(f"k1_plan: cluster {cluster} not in 1..{top}")
         return _k1_layout(n_win, n_frames, p, n_s, smem_per_block, cluster)
-    best = None
-    for c in range(1, top + 1):
+    for c in range(1, top):
         plan = _k1_layout(n_win, n_frames, p, n_s, smem_per_block, c)
-        waves = -(-n_win // max(n_sm // c, 1))
-        streamed = plan.frames_per_cta - plan.resident_frames
-        cost = waves * (plan.resident_frames + K1_COST_STREAMED * streamed
-                        + (K1_COST_CLUSTER if c > 1 else 0.0))
-        if best is None or (cost, -c) < best[0]:
-            best = ((cost, -c), plan)
-    return best[1]
+        if (plan.resident_frames == plan.frames_per_cta
+                and plan.frames_per_cta * p <= K1_THREADS):
+            return plan
+    return _k1_layout(n_win, n_frames, p, n_s, smem_per_block, top)
 
 
 _LIMITS: dict = {}
 
 
 def device_limits(device: torch.device) -> dict:
-    """The device's opt-in shared memory per block, SM count and largest
-    schedulable cluster at that shared memory, read once per device (the
-    call also sets the kernel's attributes)."""
+    """The device's opt-in shared memory per block and largest schedulable
+    cluster at that shared memory, read once per device (the call also
+    sets the kernel's attributes)."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _LIMITS:
         lib = _build.load()
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 2)()
         with torch.cuda.device(idx):
             err = lib.smpltpu_arrow_pcg_limits(out)
         if err != 0:
             raise RuntimeError(f"arrow_pcg: reading the device limits failed "
                                f"with CUDA error {err}")
-        _LIMITS[idx] = {"smem_per_block": out[0], "n_sm": out[1],
-                        "max_cluster": out[2]}
+        _LIMITS[idx] = {"smem_per_block": out[0], "max_cluster": out[1]}
     return _LIMITS[idx]
 
 

@@ -16,8 +16,8 @@ from smpltpu_torch.ops import cg
 P = 76
 # an H100's opt-in shared memory per block with clusters of 16, and the
 # same budget where only the portable cluster size 8 can be scheduled
-H100 = {"smem_per_block": 232448, "max_cluster": 16, "n_sm": 132}
-CLUSTER8 = {"smem_per_block": 232448, "max_cluster": 8, "n_sm": 132}
+H100 = {"smem_per_block": 232448, "max_cluster": 16}
+CLUSTER8 = {"smem_per_block": 232448, "max_cluster": 8}
 SHAPES = [(1, 100), (67, 20), (1, 1), (1, 7), (3, 7), (1, 160), (3, 160),
           (1, 400)]
 
@@ -52,15 +52,43 @@ def test_k1_plan(n_win, n_frames, n_s, limits):
 
 
 def test_k1_plan_picks_the_measured_layouts():
-    """The layouts the plan's estimate picks at the fit's two stage shapes
-    are the fastest of those timed on an H100 (PERF.md, K1 layouts): one window
-    of 100 frames over 16 CTAs of 6-7 resident frames, 67 windows of 20
-    over 3 CTAs of 6-7; with clusters of 8 only, 13 frames a CTA."""
+    """The plan's layouts at the fit's two stage shapes, timed on an H100
+    (PERF.md, K1 layouts): one window of 100 frames over 15 CTAs of 6-7
+    resident frames (532 rows, one pass of the 544 threads), 67 windows of
+    20 over 3 CTAs of 6-7; with clusters of 8 only, 13 frames a CTA, 7 of
+    them resident."""
     s1 = cg.k1_plan(1, 100, P, 10, **H100)
-    assert (s1.cluster, s1.frames_per_cta, s1.resident_frames) == (16, 7, 7)
+    assert (s1.cluster, s1.frames_per_cta, s1.resident_frames) == (15, 7, 7)
     s2 = cg.k1_plan(67, 20, P, 10, **H100)
     assert (s2.cluster, s2.frames_per_cta, s2.resident_frames) == (3, 7, 7)
-    assert cg.k1_plan(1, 100, P, 10, **CLUSTER8).cluster == 8
+    s8 = cg.k1_plan(1, 100, P, 10, **CLUSTER8)
+    assert (s8.cluster, s8.frames_per_cta, s8.resident_frames) == (8, 13, 7)
+
+
+def _one_pass_on_chip(plan, p):
+    return (plan.resident_frames == plan.frames_per_cta
+            and plan.frames_per_cta * p <= cg.K1_THREADS)
+
+
+@pytest.mark.parametrize("p", [31, P])
+@pytest.mark.parametrize("n_win,n_frames", SHAPES)
+def test_k1_plan_takes_the_smallest_cluster_on_chip(n_win, n_frames, p):
+    """The rule: the smallest cluster whose CTAs hold all their frames in
+    shared memory and their rows in one pass of the threads; where none
+    does, the largest the device allows."""
+    plan = cg.k1_plan(n_win, n_frames, p, 10, **H100)
+    top = min(H100["max_cluster"], n_frames)
+    smaller = [cg.k1_plan(n_win, n_frames, p, 10, **H100, cluster=c)
+               for c in range(1, plan.cluster)]
+    assert not any(_one_pass_on_chip(s, p) for s in smaller)
+    assert _one_pass_on_chip(plan, p) or plan.cluster == top
+
+
+def test_k1_plan_is_cached():
+    """A launch asks for its plan once per shape: the same arguments give
+    the same object, without recomputing the layouts."""
+    assert cg.k1_plan(67, 20, P, 10, **H100) is cg.k1_plan(67, 20, P, 10,
+                                                           **H100)
 
 
 def test_k1_plan_forced_cluster_and_scratch():
@@ -100,3 +128,4 @@ def test_k1_constants_match_the_kernel_source():
     assert const("kMaxShapes") == cg.K1_MAX_SHAPES
     assert const("kMaxCluster") == cg.K1_MAX_CLUSTER
     assert const("kMaxP") == cg.K1_MAX_P
+    assert const("kThreads") == cg.K1_THREADS
