@@ -4,7 +4,8 @@ K3, the z-buffer rasterizer, lives with the render stage
 (``smpltpu_torch/render/zbuffer.py``).
 
 ``LAUNCHES`` counts kernel launches by wrapper name ("arrow_pcg", "lbs",
-"raster"; K1 also under "arrow_pcg@{W}x{F}", by system shape): each
+"raster", and "raster_setup" where K3 also ran its per-face setup; K1 also
+under "arrow_pcg@{W}x{F}", by system shape): each
 wrapper adds one where it launches its kernel and nowhere else, so a run
 can show that it went through the kernels."""
 

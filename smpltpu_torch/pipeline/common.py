@@ -2,7 +2,7 @@
 overlay parts of ``smpltpu/pipeline/common.py`` and of the render pass of
 ``bench.py``): per-frame evaluation error and skinned vertices for every
 frame, the overlay render of one frame, and the render of every frame on
-the device (skinning through K2, rasterizing through K3).
+the device (skinning through K2, face setup and rasterizing through K3).
 
 Image files are not read or written here (the reference's image I/O is
 not ported yet): callers pass and get numpy images.
@@ -17,7 +17,7 @@ from smpltpu_torch.energy.reproj import Camera
 from smpltpu_torch.models.smpl import SMPLModel
 from smpltpu_torch.ops.lbs import joint_affines, lbs, prepare_lbs_operands
 from smpltpu_torch.render.raster import render_mesh_overlay
-from smpltpu_torch.render.zbuffer import face_setup, rasterize
+from smpltpu_torch.render.zbuffer import rasterize_verts
 from smpltpu_torch.utils.metrics import mean_pixel_error
 from smpltpu_torch.utils.writeback import params_to_pose
 
@@ -61,7 +61,7 @@ def render_overlay_image(model: SMPLModel, verts_cam: np.ndarray,
     """Overlay render of camera-space vertices (nV, 3) over ``img``
     (H, W, 3) uint8, in place; returns ``img``. ``use_jax`` (the
     reference's name for the on-device render) rasterizes through the
-    z-buffer K3 (``render/zbuffer.py::rasterize``) on the model's device
+    z-buffer K3 (``render/zbuffer.py::rasterize_verts``) on the model's device
     and writes the gray of every covered pixel; otherwise the host painter
     (``render/raster.py``) fills the faces far to near."""
     if not use_jax:
@@ -71,8 +71,8 @@ def render_overlay_image(model: SMPLModel, verts_cam: np.ndarray,
     verts = torch.as_tensor(np.asarray(verts_cam),
                             device=model.v_template.device)[None]
     faces = torch.as_tensor(model.faces, device=verts.device)
-    gray, covered = rasterize(face_setup(verts, faces, *_intrinsics(cam)),
-                              img.shape[0], img.shape[1])
+    gray, covered = rasterize_verts(verts, faces, *_intrinsics(cam),
+                                    img.shape[0], img.shape[1])
     gray, covered = gray[0].cpu().numpy(), covered[0].cpu().numpy()
     img[covered] = gray[covered][:, None]
     return img
@@ -84,8 +84,9 @@ def render_frames(model: SMPLModel, params, shape, r0, cam: Camera,
     pass of ``bench.py`` (:384-453). params (F, P) per-frame parameters,
     shape (nS,) shared or (F, nS), r0 (3, 3) shared or (F, 3, 3), as
     tensors or numpy arrays. In chunks of SKIN_BATCH frames: FK, skinning
-    through K2 (``ops/lbs.py::lbs``), face setup and the z-buffer K3
-    (``render/zbuffer.py::rasterize``); the vertices never leave the
+    through K2 (``ops/lbs.py::lbs``), then face setup and z-buffer in K3
+    (``render/zbuffer.py::rasterize_verts``), which writes each chunk
+    straight into its frames of the result; the vertices never leave the
     device. -> (gray (F, H, W) uint8, covered (F, H, W) bool), device
     tensors."""
     dev, dt = model.v_template.device, model.v_template.dtype
@@ -107,6 +108,6 @@ def render_frames(model: SMPLModel, params, shape, r0, cam: Camera,
         shp = shape[s:e].contiguous()
         g_aff, _ = joint_affines(model, shp, pose.rotations, pose.root_pos)
         verts = lbs(shp, g_aff.contiguous(), ops).transpose(1, 2)
-        gray[s:e], covered[s:e] = rasterize(
-            face_setup(verts, faces, *intr), height, width)
+        rasterize_verts(verts, faces, *intr, height, width,
+                        out=(gray[s:e], covered[s:e]))
     return gray, covered

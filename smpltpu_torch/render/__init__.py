@@ -6,4 +6,5 @@ from smpltpu_torch.render.zbuffer import (  # noqa: F401
     face_setup,
     rasterize,
     rasterize_torch,
+    rasterize_verts,
 )

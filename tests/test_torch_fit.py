@@ -251,3 +251,28 @@ def test_render_frames_matches_jax(small_model_dict, jax_side, monkeypatch):
         np.testing.assert_array_equal(covered[k].numpy(), np.asarray(c))
         np.testing.assert_array_equal(gray[k].numpy(), np.asarray(g))
         assert int(c.sum()) > 100
+
+
+def test_render_frames_writes_each_chunk_once(small_model_dict, monkeypatch):
+    """``render_frames`` hands every chunk's frames of its result to
+    ``rasterize_verts`` as ``out=``, so no chunk is rendered into a buffer
+    of its own and copied: each call's ``out`` shares the result's memory,
+    at the chunk's offset."""
+    monkeypatch.setattr(pipeline_common, "SKIN_BATCH", 3)
+    calls = []
+    real = pipeline_common.rasterize_verts
+
+    def spy(verts, *args, out=None, **kw):
+        calls.append((int(verts.shape[0]), out))
+        return real(verts, *args, out=out, **kw)
+    monkeypatch.setattr(pipeline_common, "rasterize_verts", spy)
+    rig = make_rig(small_model_dict, 7, seed=13)
+    gray, covered = render_frames(rig["model"], rig["gt"].copy(), rig["shape"],
+                                  rig["r0"], rig["cam"], H_IMG, W_IMG)
+    assert [n for n, _ in calls] == [3, 3, 1]
+    frame = H_IMG * W_IMG
+    for k, (n, out) in enumerate(calls):
+        assert out is not None and out[0].shape == (n, H_IMG, W_IMG)
+        assert out[0].data_ptr() == gray.data_ptr() + 3 * k * frame
+        assert out[1].data_ptr() == covered.data_ptr() + 3 * k * frame
+    assert int(covered.flatten(1).sum(1).min()) > 100

@@ -5,6 +5,9 @@ tensor takes the plain version, any other non-CUDA tensor is refused. The
 CUDA kernels themselves are checked against these plain versions on the
 card by chip_smoke.py."""
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -156,6 +159,52 @@ def test_lbs_plain_matches_pallas_kernel_and_forward(skin_case):
                                ref["verts"].numpy(), rtol=0, atol=1e-12)
     np.testing.assert_allclose(joints.numpy(), ref["joints"].numpy(), rtol=0,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("b", [1, 37])
+def test_lbs_plain_matches_pallas_kernel_at_other_batches(small_model_dict, b):
+    """One frame, and 37 (which no frame tile of the CUDA kernel divides):
+    ``lbs_torch`` against ``lbs_pallas`` in interpret mode, 1e-5 on
+    metre-scale vertices (the same sums, f32 rounding)."""
+    rng = np.random.default_rng(30 + b)
+    shapes = (0.4 * rng.normal(size=(b, 10))).astype(np.float32)
+    rots = np.array(j_rodrigues(jnp.asarray(
+        (0.3 * rng.normal(size=(b, 24, 3))).astype(np.float32))))
+    pos = (rng.normal(size=(b, 3)) + [0.0, 0.0, 3.0]).astype(np.float32)
+    jm = JModel.from_dict(small_model_dict, dtype=jnp.float32)
+    g, _ = jax.vmap(lambda w, r, p: j_joint_affines(jm, w, r, p))(
+        jnp.asarray(shapes), jnp.asarray(rots), jnp.asarray(pos))
+    want = np.asarray(lbs_pallas(jnp.asarray(shapes), g, j_prepare(jm),
+                                 tile=128, interpret=True))[:, :, :jm.num_verts]
+    tm = SMPLModel.from_dict(small_model_dict, device=CPU, dtype=torch.float32)
+    got = lbs.lbs(torch.as_tensor(shapes), torch.as_tensor(np.array(g)),
+                  lbs.prepare_lbs_operands(tm))
+    assert tuple(got.shape) == (b, 3, jm.num_verts)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("frame_tile", [-1, lbs.LBS_MAX_FRAME_TILE + 1])
+def test_lbs_refuses_a_frame_tile_out_of_range(skin_case, frame_tile):
+    """The frame tile is checked on every device; within its range the
+    CPU's plain version, which has no tiles, gives the same result."""
+    model_dict, shapes, rots, pos = skin_case
+    tm = SMPLModel.from_dict(model_dict, device=CPU, dtype=torch.float32)
+    ops = lbs.prepare_lbs_operands(tm)
+    g, _ = lbs.joint_affines(tm, torch.as_tensor(shapes), torch.as_tensor(rots),
+                             torch.as_tensor(pos))
+    for tile in (0, 1, lbs.LBS_MAX_FRAME_TILE):
+        torch.testing.assert_close(
+            lbs.lbs(torch.as_tensor(shapes), g, ops, frame_tile=tile),
+            lbs.lbs_torch(torch.as_tensor(shapes), g, ops), rtol=0, atol=0)
+    with pytest.raises(ValueError, match=f"frame_tile {frame_tile} not in"):
+        lbs.lbs(torch.as_tensor(shapes), g, ops, frame_tile=frame_tile)
+
+
+def test_lbs_constants_match_the_kernel_source():
+    src = (Path(lbs.__file__).resolve().parents[1] / "csrc"
+           / "lbs.cu").read_text()
+    found = re.search(r"constexpr int kMaxFrameTile = (\d+);", src)
+    assert int(found.group(1)) == lbs.LBS_MAX_FRAME_TILE
 
 
 def test_joint_affines_match_jax(skin_case):

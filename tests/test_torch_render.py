@@ -1,14 +1,19 @@
 """The port's render stage against the JAX package on the CPU: the per-face
 setup of ``render/zbuffer.py`` against ``pallas_raster._face_setup`` and
 the edge coefficients of ``rasterize_tiled``, the plain z-buffer
-``rasterize_torch`` pixel for pixel against ``jax_raster.rasterize_zbuffer``
-and ``pallas_raster.rasterize_tiled`` (interpret mode), the wrapper's
-device rules, and the host painter copy against the original.
+``rasterize_torch`` and the entry point ``rasterize_verts`` pixel for pixel
+against ``jax_raster.rasterize_zbuffer`` and
+``pallas_raster.rasterize_tiled`` (interpret mode), the wrappers' device
+and ``out=`` rules, the kernels' tiling plan, and the host painter copy
+against the original.
 
 Tolerances: none. The setup runs the reference's float32 operations in
 the reference's order, so u, v, the edge coefficients, keys and the cull
 agree bit for bit, and the images must agree in every pixel.
 """
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,13 +29,16 @@ from smpltpu.render.jax_raster import pick_patch, rasterize_zbuffer
 from smpltpu.render.pallas_raster import _face_setup, pick_cap, rasterize_tiled
 from smpltpu_torch.ops import LAUNCHES
 from smpltpu_torch.render import raster as painter
+from smpltpu_torch.render import zbuffer
 from smpltpu_torch.render.zbuffer import (
     SENTINEL,
     FaceSetup,
     face_bbox,
     face_setup,
+    raster_plan,
     rasterize,
     rasterize_torch,
+    rasterize_verts,
 )
 
 FX = FY = 200.0
@@ -216,6 +224,159 @@ def test_rasterize_raises_on_meta_tensor():
                    t((1, 2, 9), torch.float32))
     with pytest.raises(ValueError, match="no kernel for device meta"):
         rasterize(st, H, W)
+
+
+def _verts_call(verts, faces, **kw):
+    return rasterize_verts(torch.as_tensor(verts)[None], torch.as_tensor(faces),
+                           FX, FY, CX, CY, H, W, **kw)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_rasterize_verts_cpu_equals_plain(small_model_dict, name):
+    """On CPU tensors ``rasterize_verts`` is ``rasterize_torch(face_setup(
+    ...))`` and counts no kernel launch."""
+    verts, faces = _scene(name, small_model_dict)
+    LAUNCHES.clear()
+    gray, covered = _verts_call(verts, faces)
+    g1, c1 = rasterize_torch(_setup(verts, faces), H, W)
+    assert LAUNCHES["raster"] == 0 and LAUNCHES["raster_setup"] == 0
+    torch.testing.assert_close(gray, g1, rtol=0, atol=0)
+    torch.testing.assert_close(covered, c1, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("reference", ["zbuffer", "tiled"])
+@pytest.mark.parametrize("name", SCENES)
+def test_rasterize_verts_pixel_exact(small_model_dict, name, reference):
+    """The entry point from the vertices against both references of the
+    JAX package, every pixel."""
+    verts, faces = _scene(name, small_model_dict)
+    gray, covered = _verts_call(verts, faces)
+    assert gray.shape == (1, H, W) and gray.dtype == torch.uint8
+    assert covered.dtype == torch.bool
+    g_ref, c_ref = {"zbuffer": _zbuffer, "tiled": _tiled}[reference](verts, faces)
+    np.testing.assert_array_equal(covered[0].numpy(), c_ref)
+    np.testing.assert_array_equal(gray[0].numpy(), g_ref)
+    _check_scene(name, verts, c_ref)
+
+
+def test_rasterize_verts_takes_strided_and_float64_vertices(small_model_dict):
+    """Vertices in the skinning kernel's coordinate-major layout (a
+    transposed view) and in float64 (cast to float32, as the reference
+    casts) give the same image."""
+    verts, faces = _scene("close_up", small_model_dict)
+    want = _verts_call(verts, faces)
+    major = torch.as_tensor(verts).T.contiguous().T      # (nV, 3), strides (1, nV)
+    assert not major.is_contiguous()
+    for v in (major, torch.as_tensor(verts, dtype=torch.float64)):
+        got = rasterize_verts(v[None], torch.as_tensor(faces), FX, FY, CX, CY,
+                              H, W)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _three_frames(small_model_dict):
+    frames = np.stack([_scene(n, small_model_dict)[0]
+                       for n in ("mesh", "close_up", "off_screen")])
+    return torch.as_tensor(frames), torch.as_tensor(
+        _scene("mesh", small_model_dict)[1])
+
+
+@pytest.mark.parametrize("entry", ["rasterize", "rasterize_verts"])
+@pytest.mark.parametrize("view", ["chunk", "every_other"])
+def test_out_writes_into_batch_views(small_model_dict, entry, view):
+    """``out=(gray, covered)`` writes a batch into views of larger results
+    (a chunk of consecutive frames, as ``render_frames`` passes, and a
+    strided one) and returns those views; the other frames stay as they
+    were."""
+    verts, faces = _three_frames(small_model_dict)
+    gray = torch.full((6, H, W), 7, dtype=torch.uint8)
+    covered = torch.ones((6, H, W), dtype=torch.bool)
+    idx = slice(1, 4) if view == "chunk" else slice(0, 6, 2)
+    out = (gray[idx], covered[idx])
+    if entry == "rasterize":
+        got = rasterize(face_setup(verts, faces, FX, FY, CX, CY), H, W, out=out)
+    else:
+        got = rasterize_verts(verts, faces, FX, FY, CX, CY, H, W, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    want = rasterize_torch(face_setup(verts, faces, FX, FY, CX, CY), H, W)
+    torch.testing.assert_close(gray[idx], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(covered[idx], want[1], rtol=0, atol=0)
+    rest = torch.ones(6, dtype=torch.bool)
+    rest[idx] = False
+    assert (gray[rest] == 7).all() and covered[rest].all()
+    assert int(want[1].sum()) > 300
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("dtype", "gray must be torch.uint8"),
+    ("shape", "covered must be torch.bool"),
+    ("frames", "gray must be torch.uint8"),
+])
+def test_out_is_checked(small_model_dict, bad, match):
+    verts, faces = _three_frames(small_model_dict)
+    gray = torch.zeros((3, H, W), dtype=torch.uint8)
+    covered = torch.zeros((3, H, W), dtype=torch.bool)
+    out = {"dtype": (gray.to(torch.int32), covered),
+           "shape": (gray, covered[:, :-1]),
+           "frames": (gray[:2], covered[:2])}[bad]
+    with pytest.raises(ValueError, match=match):
+        rasterize_verts(verts, faces, FX, FY, CX, CY, H, W, out=out)
+
+
+def test_rasterize_verts_raises_on_meta_tensor():
+    verts = torch.empty((1, 4, 3), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rasterize_verts(verts, torch.zeros((2, 3), dtype=torch.int32), FX, FY,
+                        CX, CY, H, W)
+
+
+@pytest.mark.parametrize("n_frames,n_faces", [(1, 1), (3, 596), (100, 13776)])
+@pytest.mark.parametrize("height,width", [
+    (1280, 720), (250, 130), (H, W), (32, 80), (33, 81), (1, 1), (31, 79)])
+def test_raster_plan(n_frames, n_faces, height, width):
+    """The kernels' tiling: the tiles cover the frame, only the last
+    column and row ragged, and the scratch holds what the lists can reach
+    at most (every face in SMALL_TILES lists, or once in the big list)."""
+    plan = raster_plan(n_frames, n_faces, height, width)
+    tw, th = zbuffer.TILE_W, zbuffer.TILE_H
+    assert (plan.tiles_x - 1) * tw < width <= plan.tiles_x * tw
+    assert (plan.tiles_y - 1) * th < height <= plan.tiles_y * th
+    tiles = plan.tiles_x * plan.tiles_y
+    assert plan.meta_ints == n_frames * (3 + 3 * tiles)
+    assert plan.list_ints == n_frames * zbuffer.SMALL_TILES * n_faces
+    assert plan.big_ints == n_frames * n_faces
+    assert tw % 16 == 0        # whole 16-byte stores when W is a multiple of 16
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"height": 0}, "frame size 0 x 720"),
+    ({"width": 2 ** 22 + 1}, "frame size"),
+    ({"height": 2 ** 16, "width": 2 ** 16}, "frame size"),
+    ({"n_frames": 0}, "0 frames"),
+    ({"n_frames": 65536}, "65536 frames"),
+    ({"n_faces": 0}, "of 0 faces"),
+    ({"n_frames": 60000, "n_faces": 13776}, "out of range"),
+])
+def test_raster_plan_refuses(kw, match):
+    args = {"n_frames": 100, "n_faces": 13776, "height": 1280, "width": 720,
+            **kw}
+    with pytest.raises(ValueError, match=match):
+        raster_plan(**args)
+
+
+def test_raster_constants_match_the_kernel_source():
+    """The plan mirrors the kernels' tiling and record size: the constants
+    of render/zbuffer.py against those of csrc/raster.cu."""
+    src = (Path(zbuffer.__file__).resolve().parents[1] / "csrc"
+           / "raster.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+)[;,]", src).group(1))
+    assert const("kTileW") == zbuffer.TILE_W
+    assert const("kTileH") == zbuffer.TILE_H
+    assert const("kSmallTiles") == zbuffer.SMALL_TILES
+    assert const("kRec") == zbuffer.REC_INTS
+    assert "0x7FFFFFFF" in src and SENTINEL == 0x7FFFFFFF
 
 
 def test_painter_copy_matches_numpy_fill(small_model_dict, monkeypatch):
