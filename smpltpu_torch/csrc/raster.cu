@@ -83,7 +83,9 @@
 // patch of its box (idle lanes); three tiles a CTA (fewer CTAs, but a
 // body's tiles sit together and serialize); clearing the empty tiles from
 // fill_kernel (its stores do not merge in L2); the inside test as a bit
-// mask first, atomics after.
+// mask first, atomics after; and, no faster on a body's frames though a
+// third faster on empty ones, a row's first CTA writing the zeros of all
+// the row's empty tiles: the drawn tiles set the time, not the stores.
 //
 // Exactness: the setup's every product, sum, quotient and root is a
 // rounding intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn,
