@@ -22,9 +22,8 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    (67 x 20) and stage-1 (1 x 100) shapes timed under the plan's cluster
    size and one alternative (the layouts).
 4. K2 (blendshapes + skinning) against its plain version: 100 frames of
-   the full-width model (timed, and the kernel's time under every frame
-   tile beside the launch's own choice), 1 and 37 frames (a ragged frame
-   tile), the 300-vertex model, and a 7-shape model through the kernel's
+   the full-width model (timed), 1 and 37 frames (a ragged frame tile),
+   the 300-vertex model, and a 7-shape model through the kernel's
    run-time-width instantiation.
 5. the main path: the 1000-frame synthetic workload of bench.py through
    the fused two-stage fit with ``linear="pcg_kernel"`` (one warm-up run,
@@ -46,15 +45,23 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    device (``render_frames``), with the launch counts and peak memory of
    that run, every frame's coverage, and two frames held against the host
    painter's coverage; then one more pass under the profiler.
-7. one more fit under torch.profiler (phase ``5 fit_profile``: device
-   busy ms, K1's ms and launches, the idle share), last, so that the
-   profiler's cost touches none of the timings above.
+7. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+   LM iterations: the profiler takes half a minute to digest a full
+   fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
+   launches, the idle share; last, so that the profiler's cost touches
+   none of the timings above.
 
     python3 chip_smoke.py --k1-layouts
 
 times K1 instead under every cluster size at the stage shapes and a few
 others (phases 1-3, no main path and no result line): the measurement
 behind ``ops/cg.py::k1_plan``'s rule.
+
+    python3 chip_smoke.py --k2
+
+runs phases 1, 2 and the 100-frame case of phase 4 only: K2's time by
+both measures below. A copy of this script in another checkout of the
+port times that checkout's K2 the same way.
 
 Every kernel's line carries its bound: the larger of its bytes (inputs
 read once, outputs written once) over 3.35 TB/s and its float32
@@ -85,6 +92,7 @@ K2_ATOL = 1e-5       # metre-scale vertices, float32
 RENDER_PEAK_MAX_GIB = 2.19   # 0.3 below the render with a z-buffer in device memory
 RESIDUAL_MAX_PX = 2.0
 PLAIN_GAP_MAX_PX = 0.1
+PROFILE_DEPTH = 5             # the profiled fit runs 1/5 of the LM iterations
 H_R, W_R = 1280, 720          # render size: the bench camera at full size
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
@@ -111,6 +119,10 @@ K1_SWEEP = (
 # phase 3 layouts: at each stage shape, the plan's cluster size and this
 # alternative (one CTA per window in one wave; the largest cluster)
 K1_ALTERNATIVE = {(67, 20): 1, (1, 100): 16}
+# phase 4's K2 cases: (label, options of the synthetic model, frames)
+K2_CASES = (("b100", {}, 100), ("b1", {}, 1), ("b37", {}, 37),
+            ("b37_nv300", {"n_verts": 300}, 37),
+            ("b37_ns7", {"n_shapes": 7}, 37))
 # --k1-layouts: every cluster size at these (W, F, P) shapes
 K1_LAYOUT_SHAPES = ((67, 20, 76), (1, 100, 76), (3, 33, 76), (1, 150, 76),
                     (1, 400, 76), (1, 100, 31))
@@ -390,16 +402,19 @@ def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
             "n_frames": n_frames, "use_smpl": USE_SMPL}
 
 
-def build_fit(w, linear, device):
+def build_fit(w, linear, device, depth=1):
     """The port's fused two-stage fit with bench.py's configs
-    (bench.py:169-172, :216-219), fused cost, 40 CG steps."""
+    (bench.py:169-172, :216-219), fused cost, 40 CG steps; both stages'
+    LM iterations divided by ``depth``."""
     import torch
     from smpltpu_torch.solve import MultiFrameConfig, build_fused_two_stage
 
     common = dict(beta_pose=5.0, lambda_temporal=3.0, linear=linear,
                   cg_iters=CG_ITERS, fused_cost=True)
-    cfg1 = MultiFrameConfig(beta_shape=25.0, max_iters=S1_ITERS, **common)
-    cfg2 = MultiFrameConfig(beta_shape=1e5, max_iters=S2_ITERS, **common)
+    cfg1 = MultiFrameConfig(beta_shape=25.0, max_iters=S1_ITERS // depth,
+                            **common)
+    cfg2 = MultiFrameConfig(beta_shape=1e5, max_iters=S2_ITERS // depth,
+                            **common)
     return build_fused_two_stage(w["spec"], w["cam"], cfg1, cfg2, 10,
                                  w["anchor_idx"], w["starts"], WSIZE,
                                  w["n_frames"], device=device,
@@ -473,28 +488,32 @@ def k3_setup_diff(verts, faces, intr, height, width):
 def k3_case(label, verts, faces, intr, checks, expect, height=H_R,
             width=W_R):
     """K3 through both entry points against its plain version on the same
-    face setup, pixel-exact, and its setup stage against the plain setup,
-    bit for bit; ``expect(covered_px, setup, gray)`` checks the scene's
-    own content."""
+    face setup, pixel-exact (``rasterize``, ``rasterize_verts``, and the
+    launch whose scratch is read), and its setup stage against the plain
+    setup, bit for bit; ``expect(covered_px, setup, gray)`` checks the
+    scene's own content."""
     import torch
     from smpltpu_torch.render.zbuffer import (
         face_setup,
         rasterize,
         rasterize_torch,
+        rasterize_verts,
     )
     st = face_setup(verts, faces, *intr)
     g1, c1 = rasterize(st, height, width)
     g2, c2 = rasterize_torch(st, height, width)
-    g3, c3, d_key, d_box, d_coef = k3_setup_diff(verts, faces, intr, height,
+    g3, c3 = rasterize_verts(verts, faces, *intr, height, width)
+    g4, c4, d_key, d_box, d_coef = k3_setup_diff(verts, faces, intr, height,
                                                  width)
     torch.cuda.synchronize()
-    d_gray = [int((g != g2).sum()) for g in (g1, g3)]
-    d_cov = [int((c != c2).sum()) for c in (c1, c3)]
+    d_gray = [int((g != g2).sum()) for g in (g1, g3, g4)]
+    d_cov = [int((c != c2).sum()) for c in (c1, c3, c4)]
     n_cov = int(c1.sum())
     scene_ok = bool(expect(n_cov, st, g1))
     ok = (not any(d_gray + d_cov + [d_key, d_box, d_coef])) and scene_ok
     checks(ok, f"K3 {label}: gray {d_gray} and covered {d_cov} pixels differ "
-               f"from the plain version (rasterize, rasterize_verts); setup "
+               f"from the plain version (rasterize, rasterize_verts, the "
+               f"launch read for its setup); setup "
                f"words differing: key {d_key}, box {d_box}, coef {d_coef}; "
                f"scene check {scene_ok}")
     phase(f"6 k3_{label}", ok=ok, frames=int(verts.shape[0]), height=height,
@@ -517,44 +536,55 @@ def coverage_agreement(cov_dev, cov_host):
             (cov_host & dil(cov_dev)).sum() / max(cov_host.sum(), 1))
 
 
-def fit_profile(run, args, k1_launches, checks):
-    """Phase 5 fit_profile, run after phase 6: one more fit under
-    torch.profiler, device activity only (the host's operators are not
-    recorded, which keeps the profiler's cost out of the wall time); the
-    device's busy time (the sum of its kernels' self time), K1's share and
-    the idle share of the profiled wall time. The run's K1 launches, by
-    the wrapper's own count, must be the main path's. The profiler's
-    records of them may fall short: it loses a buffer of records now and
-    then on a fit of ~143 000 launches (1 % of them, 2 of K1's 210, in one
-    run of five on an H100), so its count is held to at most the
-    wrapper's and at least nine tenths of it, and printed beside it."""
+def fit_profile(w, dev, checks):
+    """Phase 5 fit_profile, run after phase 6: a fit of 1/PROFILE_DEPTH of
+    the LM iterations under torch.profiler, device activity only (the
+    host's operators are not recorded, which keeps the profiler's cost out
+    of the wall time); the device's busy time (the sum of its kernels'
+    self time), K1's share and the idle share of the profiled wall time.
+    The run's K1 launches, by the wrapper's own count, must be its loop
+    trips, and the profiler's records of K1 as many. The profiler loses a
+    buffer of records now and then (1 % of a full fit's ~143 000, in one
+    run of five on an H100): a run that lost some is made once more, and
+    if that one falls short too, ``records_complete`` is false, its busy
+    and K1 times are lower bounds, and its count is held to nine tenths of
+    the wrapper's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from smpltpu_torch.ops import LAUNCHES
-    before = LAUNCHES["arrow_pcg"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(*args)
+    run = build_fit(w, "pcg_kernel", dev, depth=PROFILE_DEPTH)
+    run(*w["args"])
+    for attempt in (1, 2):
+        before = LAUNCHES["arrow_pcg"]
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
-    k1 = [e for e in dev if "arrow_pcg_kernel" in e.key]
-    k1_seen = sum(e.count for e in k1)
-    k1_run = LAUNCHES["arrow_pcg"] - before
-    checks(k1_run == k1_launches,
-           f"profiled fit: {k1_run} K1 launches, {k1_launches} on the main path")
-    checks(busy_ms > 0 and 0.9 * k1_launches <= k1_seen <= k1_launches,
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st1, st2 = run(*w["args"])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        k1 = [e for e in dev_ev if "arrow_pcg_kernel" in e.key]
+        k1_seen = sum(e.count for e in k1)
+        k1_run = LAUNCHES["arrow_pcg"] - before
+        if k1_seen == k1_run:
+            break
+    busy_ms = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    trips = int(st1.iters_run) + int(st2.iters_run.max())
+    checks(k1_run == trips and trips > 0,
+           f"profiled fit: {k1_run} K1 launches, {trips} loop trips")
+    checks(busy_ms > 0 and 0.9 * k1_run <= k1_seen <= k1_run,
            f"profiled fit: {busy_ms} ms busy, {k1_seen} K1 launches in the "
-           f"profiler's records, {k1_launches} launched")
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-    phase("5 fit_profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-          idle_share=1.0 - busy_ms / wall_ms,
+           f"profiler's records, {k1_run} launched")
+    top = sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:8]
+    phase("5 fit_profile", depth=f"1/{PROFILE_DEPTH}", attempts=attempt,
+          records_complete=k1_seen == k1_run, wall_ms=wall_ms,
+          device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
           k1_ms=sum(e.self_device_time_total for e in k1) / 1e3,
           k1_launches=k1_run, k1_launches_recorded=k1_seen,
-          device_launches=sum(e.count for e in dev),
+          device_launches=sum(e.count for e in dev_ev),
+          device_busy_ms_per_trip=busy_ms / max(trips, 1),
           top_kernels_ms=[[e.key[:90], e.self_device_time_total / 1e3,
                            e.count] for e in top])
 
@@ -747,6 +777,58 @@ def render_phase(w, frame_params, shp, verts, fit_s, checks):
     return k3, k3_launches, k3_setup_launches
 
 
+def k2_phase(rng, dev, checks, cases):
+    """Phase 4: K2 against its plain version within K2_ATOL on each of
+    ``cases`` (label, model options, frames); the 100-frame case timed.
+    Returns that case's numbers."""
+    import torch
+    from smpltpu_torch.models import SMPLModel, make_synthetic_model
+    from smpltpu_torch.models.smpl import rodrigues
+    from smpltpu_torch.ops import lbs
+    k2, models = None, {}
+    for label, kw, b in cases:
+        key = tuple(sorted(kw.items()))
+        if key not in models:
+            models[key] = SMPLModel.from_dict(
+                make_synthetic_model(**kw), device=dev, dtype=torch.float32)
+        model = models[key]
+        ops = lbs.prepare_lbs_operands(model)
+        n_s = model.shapedirs.shape[-1]
+        shapes = torch.as_tensor(0.5 * rng.normal(size=(b, n_s)),
+                                 dtype=torch.float32, device=dev)
+        rots = rodrigues(torch.as_tensor(
+            0.3 * rng.normal(size=(b, model.num_joints, 3)),
+            dtype=torch.float32, device=dev))
+        pos = torch.as_tensor(rng.normal(size=(b, 3)) * 0.2 + [0.0, 0.0, 3.0],
+                              dtype=torch.float32, device=dev)
+        g_aff, _ = lbs.joint_affines(model, shapes, rots, pos)
+        g_aff = g_aff.contiguous()
+        got = lbs.lbs(shapes, g_aff, ops)
+        want = lbs.lbs_torch(shapes, g_aff, ops)
+        torch.cuda.synchronize()
+        k2_err = float((got - want).abs().max())
+        k2_ok = k2_err <= K2_ATOL and bool(torch.all(torch.isfinite(got)))
+        checks(k2_ok, f"K2 {label}: kernel vs plain {k2_err} > {K2_ATOL}")
+        out = {"shape": list(got.shape), "n_joints": model.num_joints,
+               "n_shapes": n_s, "max_abs_err": k2_err}
+        if label == "b100":
+            # per (frame, vertex): blend 6nS + 3, transforms 24nJ, apply 18
+            k2_bound = bound(
+                nbytes(shapes, g_aff, got, ops["v_template_t"],
+                       ops["shapedirs_t"], ops["weights_t"]),
+                b * model.num_verts * (6 * n_s + 3 + 24 * model.num_joints
+                                       + 18))
+            out.update(
+                ms=graph_ms(lambda: lbs.lbs(shapes, g_aff, ops), 50),
+                event_ms=cuda_ms(lambda: lbs.lbs(shapes, g_aff, ops), 50),
+                plain_ms=cuda_ms(lambda: lbs.lbs_torch(shapes, g_aff, ops),
+                                 10),
+                bound_ms=k2_bound[0], bound_by=k2_bound[1])
+            k2 = out
+        phase(f"4 k2_{label}", ok=k2_ok, **out)
+    return k2
+
+
 def main(argv):
     import torch
 
@@ -756,7 +838,7 @@ def main(argv):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import smpltpu_torch
     from smpltpu_torch import _build
-    from smpltpu_torch.ops import LAUNCHES, cg, lbs
+    from smpltpu_torch.ops import LAUNCHES, cg
     from smpltpu_torch.pipeline.common import (
         batched_frame_eval,
         render_overlay_image,
@@ -788,8 +870,12 @@ def main(argv):
     phase("2 build", built=info["built"], seconds=info["seconds"],
           ptxas=ptxas)
 
-    # 3. K1 vs plain on random systems, then the layouts
     rng = np.random.default_rng(1)
+    if argv == ["--k2"]:
+        k2_phase(rng, dev, checks, K2_CASES[:1])
+        return 1 if checks.failed else 0
+
+    # 3. K1 vs plain on random systems, then the layouts
     phase("3 k1_limits", **cg.device_limits(dev))
     if argv == ["--k1-layouts"]:
         k1_layouts(rng, dev, checks, every=True)
@@ -806,53 +892,7 @@ def main(argv):
 
     # 4. K2 vs plain: the full-width model at 100 (timed), 1 and 37 frames,
     # the 300-vertex model, and 7 shapes (the run-time-width instantiation)
-    from smpltpu_torch.models import SMPLModel, make_synthetic_model
-    from smpltpu_torch.models.smpl import rodrigues
-    k2 = None
-    for label, kw, b in (("b100", {}, 100), ("b1", {}, 1), ("b37", {}, 37),
-                         ("b37_nv300", {"n_verts": 300}, 37),
-                         ("b37_ns7", {"n_shapes": 7}, 37)):
-        model = SMPLModel.from_dict(make_synthetic_model(**kw), device=dev,
-                                    dtype=torch.float32)
-        ops = lbs.prepare_lbs_operands(model)
-        n_s = model.shapedirs.shape[-1]
-        shapes = torch.as_tensor(0.5 * rng.normal(size=(b, n_s)),
-                                 dtype=torch.float32, device=dev)
-        rots = rodrigues(torch.as_tensor(
-            0.3 * rng.normal(size=(b, model.num_joints, 3)),
-            dtype=torch.float32, device=dev))
-        pos = torch.as_tensor(rng.normal(size=(b, 3)) * 0.2 + [0.0, 0.0, 3.0],
-                              dtype=torch.float32, device=dev)
-        g_aff, _ = lbs.joint_affines(model, shapes, rots, pos)
-        g_aff = g_aff.contiguous()
-        got = lbs.lbs(shapes, g_aff, ops)
-        want = lbs.lbs_torch(shapes, g_aff, ops)
-        torch.cuda.synchronize()
-        k2_err = float((got - want).abs().max())
-        k2_ok = k2_err <= K2_ATOL and bool(torch.all(torch.isfinite(got)))
-        checks(k2_ok, f"K2 {label}: kernel vs plain {k2_err} > {K2_ATOL}")
-        out = {"shape": list(got.shape), "n_joints": model.num_joints,
-               "n_shapes": n_s, "max_abs_err": k2_err}
-        if label == "b100":
-            # per (frame, vertex): blend 6nS + 3, transforms 24nJ, apply 18
-            k2_bound = bound(
-                nbytes(shapes, g_aff, got, ops["v_template_t"],
-                       ops["shapedirs_t"], ops["weights_t"]),
-                b * model.num_verts * (6 * n_s + 3 + 24 * model.num_joints
-                                       + 18))
-            tiles = {str(ft): graph_ms(lambda: lbs.lbs(
-                shapes, g_aff, ops, frame_tile=ft), 20)
-                for ft in range(lbs.LBS_MAX_FRAME_TILE + 1)}
-            out.update(
-                ms=graph_ms(lambda: lbs.lbs(shapes, g_aff, ops), 50),
-                event_ms=cuda_ms(lambda: lbs.lbs(shapes, g_aff, ops), 50),
-                plain_ms=cuda_ms(lambda: lbs.lbs_torch(shapes, g_aff, ops),
-                                 10),
-                bound_ms=k2_bound[0], bound_by=k2_bound[1],
-                ms_by_frame_tile=tiles)
-            k2 = out
-        phase(f"4 k2_{label}", ok=k2_ok, **out)
-    del model, ops, shapes, rots, pos, g_aff, got, want
+    k2 = k2_phase(rng, dev, checks, K2_CASES)
 
     # 5. main path
     t0 = time.perf_counter()
@@ -958,7 +998,7 @@ def main(argv):
 
     k3, k3_launches, k3_setup_launches = render_phase(
         w, frame_params, shp, verts, fit_s, checks)
-    fit_profile(run, w["args"], k1_launches, checks)
+    fit_profile(w, dev, checks)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "smpltpu"))

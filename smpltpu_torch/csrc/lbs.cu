@@ -198,30 +198,42 @@ lbs_kernel(const float* __restrict__ shapes,  // (B, nS)
 
 }  // namespace
 
-// Launches K2 on `stream`; returns cudaGetLastError() (0 on success).
-// `frame_tile` (1..8) is the frames a block walks; 0 lets the launch pick
-// the largest tile that still gives the card two blocks per SM.
+// The card's SM count, asked of the runtime once for each device.
+static int sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static int known[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < kDevices && known[dev] > 0) {
+    *sms = known[dev];
+    return 0;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kDevices) known[dev] = *sms;
+  return (int)err;
+}
+
+// Launches K2 on `stream`; returns cudaGetLastError() (0 on success). A
+// block walks the largest frame tile (at most kMaxFrameTile) that still
+// gives the card two blocks per SM.
 extern "C" int smpltpu_lbs_f32(const float* shapes, const float* g,
                                const float* vt, const float* sd,
                                const float* wt, float* out, int B, int nV,
-                               int nJ, int nS, int frame_tile, void* stream) {
+                               int nJ, int nS, void* stream) {
   if (B < 1 || nV < 1 || nJ < 1 || nJ > kMaxJoints || nS < 0
-      || nS > kMaxShapes || frame_tile < 0 || frame_tile > kMaxFrameTile)
+      || nS > kMaxShapes)
     return (int)cudaErrorInvalidValue;
   const bool fixed = nJ == 24 && nS == 10;
   const int vpt = fixed ? kVertsPerThread : 1;
   const int vblocks = (nV + kThreads * vpt - 1) / (kThreads * vpt);
-  if (frame_tile == 0) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    frame_tile = kMaxFrameTile;
-    while (frame_tile > 1
-           && (long long)vblocks * ((B + frame_tile - 1) / frame_tile) < 2LL * sms)
-      --frame_tile;
-  }
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != 0) return err;
+  int frame_tile = kMaxFrameTile;
+  while (frame_tile > 1
+         && (long long)vblocks * ((B + frame_tile - 1) / frame_tile) < 2LL * sms)
+    --frame_tile;
   const int tiles = (B + frame_tile - 1) / frame_tile;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(vblocks, tiles);

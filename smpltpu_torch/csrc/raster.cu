@@ -467,8 +467,8 @@ __global__ void __launch_bounds__(kThreads) fill_kernel(const Args a) {
   int* list = a.list + (size_t)b * kSmallTiles * a.F;
   // every tile's atomic is under way before the first is waited for
   Inc inc[kSmallTiles];
-#pragma unroll
   TileWalk walk(r, small);
+#pragma unroll
   for (int k = 0; k < kSmallTiles; ++k) {
     const int t = walk.next(a.ntx);
     inc[k] = warp_inc(a.offset + (size_t)b * T, t, t >= 0);

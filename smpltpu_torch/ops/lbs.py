@@ -21,9 +21,6 @@ from smpltpu_torch.ops import LAUNCHES
 from smpltpu_torch.models.smpl import SMPLModel, _fk_global
 
 
-LBS_MAX_FRAME_TILE = 8    # kMaxFrameTile of csrc/lbs.cu
-
-
 def prepare_lbs_operands(model: SMPLModel) -> dict:
     """The model arrays in the kernel's coordinate-major layout, in the
     model's dtype and device (once per model): v_template_t (3, nV),
@@ -50,16 +47,9 @@ def lbs_torch(shapes: torch.Tensor, g_affine: torch.Tensor,
 
 
 def lbs(shapes: torch.Tensor, g_affine: torch.Tensor,
-        operands: dict, frame_tile: int = 0) -> torch.Tensor:
+        operands: dict) -> torch.Tensor:
     """K2 on a CUDA tensor (float32), the plain version on a CPU tensor.
-    Counts its kernel launches in ``LAUNCHES["lbs"]``. ``frame_tile`` is
-    the number of frames a block of the kernel walks with its vertices'
-    operands in registers (1..LBS_MAX_FRAME_TILE); 0, the rule, lets the
-    launch pick it from the batch and the card's size, and the card check
-    times the others beside it."""
-    if not 0 <= frame_tile <= LBS_MAX_FRAME_TILE:
-        raise ValueError(f"lbs: frame_tile {frame_tile} not in "
-                         f"0..{LBS_MAX_FRAME_TILE}")
+    Counts its kernel launches in ``LAUNCHES["lbs"]``."""
     dev = shapes.device
     if dev.type == "cpu":
         return lbs_torch(shapes, g_affine, operands)
@@ -83,7 +73,7 @@ def lbs(shapes: torch.Tensor, g_affine: torch.Tensor,
         shapes.data_ptr(), g_affine.data_ptr(),
         operands["v_template_t"].data_ptr(), operands["shapedirs_t"].data_ptr(),
         operands["weights_t"].data_ptr(), out.data_ptr(), b, n_v, n_j, n_s,
-        frame_tile, torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lbs: kernel launch failed with CUDA error {err}")
     LAUNCHES["lbs"] += 1

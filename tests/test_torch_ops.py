@@ -5,6 +5,7 @@ tensor takes the plain version, any other non-CUDA tensor is refused. The
 CUDA kernels themselves are checked against these plain versions on the
 card by chip_smoke.py."""
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -21,6 +22,7 @@ from smpltpu.ops.cg import arrow_pcg_pallas
 from smpltpu.ops.lbs import joint_affines as j_joint_affines
 from smpltpu.ops.lbs import lbs_pallas
 from smpltpu.ops.lbs import prepare_lbs_operands as j_prepare
+from smpltpu_torch import _build
 from smpltpu_torch.models import SMPLModel, smpl_forward
 from smpltpu_torch.ops import LAUNCHES, cg, lbs
 
@@ -183,28 +185,20 @@ def test_lbs_plain_matches_pallas_kernel_at_other_batches(small_model_dict, b):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("frame_tile", [-1, lbs.LBS_MAX_FRAME_TILE + 1])
-def test_lbs_refuses_a_frame_tile_out_of_range(skin_case, frame_tile):
-    """The frame tile is checked on every device; within its range the
-    CPU's plain version, which has no tiles, gives the same result."""
-    model_dict, shapes, rots, pos = skin_case
-    tm = SMPLModel.from_dict(model_dict, device=CPU, dtype=torch.float32)
-    ops = lbs.prepare_lbs_operands(tm)
-    g, _ = lbs.joint_affines(tm, torch.as_tensor(shapes), torch.as_tensor(rots),
-                             torch.as_tensor(pos))
-    for tile in (0, 1, lbs.LBS_MAX_FRAME_TILE):
-        torch.testing.assert_close(
-            lbs.lbs(torch.as_tensor(shapes), g, ops, frame_tile=tile),
-            lbs.lbs_torch(torch.as_tensor(shapes), g, ops), rtol=0, atol=0)
-    with pytest.raises(ValueError, match=f"frame_tile {frame_tile} not in"):
-        lbs.lbs(torch.as_tensor(shapes), g, ops, frame_tile=frame_tile)
-
-
-def test_lbs_constants_match_the_kernel_source():
-    src = (Path(lbs.__file__).resolve().parents[1] / "csrc"
-           / "lbs.cu").read_text()
-    found = re.search(r"constexpr int kMaxFrameTile = (\d+);", src)
-    assert int(found.group(1)) == lbs.LBS_MAX_FRAME_TILE
+@pytest.mark.parametrize("entry", sorted(_build._SIGNATURES))
+def test_ctypes_signatures_match_the_kernel_sources(entry):
+    """Each C entry point is declared once in the sources, with as many
+    parameters as its ctypes signature has, pointers (and the stream) as
+    ``c_void_p``."""
+    csrc = Path(lbs.__file__).resolve().parents[1] / "csrc"
+    text = "".join((csrc / name).read_text() for name in _build.SOURCES)
+    found = re.findall(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert len(found) == 1
+    params = [p.strip() for p in found[0].split(",")]
+    res, args = _build._SIGNATURES[entry]
+    assert res is ctypes.c_int and len(args) == len(params)
+    for param, arg in zip(params, args):
+        assert ("*" in param) == (arg is ctypes.c_void_p), (param, arg)
 
 
 def test_joint_affines_match_jax(skin_case):
