@@ -31,21 +31,42 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    against the plain version: see ``k1_compare`` for the tolerance on
    these ill-conditioned systems; then a timed run), write-back, skinning
    of all frames through K2, two frames rendered with the host painter;
-   then the same fit with the plain PCG, which must land within 0.1 px.
+   then the same fit with the plain PCG, which must land within 0.1 px;
+   then once more with the exact solve (``linear="tridiag"``, the
+   library's and the CLI's default): residual under 2.0 px, no K1 launch
+   (phase ``5 main_path_tridiag``). Before the timed fit, phase 7 takes
+   the same first LM iteration's systems through the exact solve in
+   float32 under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+   sync), held to float64 and to a dense float64 solve, with K1's 40-step
+   answer's distance from it (PCG's truncation), the ms per solve and the
+   device launches per solve.
 6. the render stage: K3 (the z-buffer rasterizer) through both entry
    points, ``rasterize`` from a face setup and ``rasterize_verts`` from the
    vertices, each pixel-exact against the plain version, and the setup
    kernel's key, coefficients and boxes bit for bit against the plain
    setup, on one triangle, an occluding pair, culled faces, a mesh partly
    off screen, a near face over most of the frame, 8 fitted frames, a
-   batch with an empty frame in it, a batch of one (all at 1280 x 720) and
-   a 250 x 130 frame that no tile divides; 100 fitted frames, run twice
+   batch with an empty frame in it, a batch of one (all at 1280 x 720), a
+   250 x 130 frame that no tile divides and one frame at 270 x 480 (the
+   CLI's video1 frames); 100 fitted frames, run twice
    (identical) and timed through both entry points beside the eager
    setup; then all 1000 fitted frames rendered through K2 -> K3 on the
    device (``render_frames``), with the launch counts and peak memory of
    that run, every frame's coverage, and two frames held against the host
    painter's coverage; then one more pass under the profiler.
-7. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+7. the port's multi CLI through ``main(argv)`` on the card, each run in a
+   directory under ``build/chip_smoke_cli`` (removed afterwards), phases
+   ``8 cli_*``: ``cli_default`` (the full-width synthetic model on
+   data/keypoints/video1 and its 480 x 270 frames, the default argv:
+   sequential windows, the exact solve, the host painter), ``cli_golden``
+   (the argv and model of tests/test_fullres_golden.py on blank 1280 x 720
+   frames, plus --jax-render; log.csv held row by row to
+   tests/data/fullres_golden_video1.npz) and ``cli_kernels`` (that argv at
+   full width with --fused-stages --linear pcg_kernel --jax-render beside
+   --linear pcg on the sequential stages). Every K3 launch of the last
+   three runs is held pixel-exact against ``rasterize_torch``; each line
+   carries the run's wall s, stage ms and kernel launches.
+8. one more fit under torch.profiler, at a fifth of the depth (30 + 12
    LM iterations: the profiler takes half a minute to digest a full
    fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
    launches, the idle share; last, so that the profiler's cost touches
@@ -93,6 +114,17 @@ RENDER_PEAK_MAX_GIB = 2.19   # 0.3 below the render with a z-buffer in device me
 RESIDUAL_MAX_PX = 2.0
 PLAIN_GAP_MAX_PX = 0.1
 PROFILE_DEPTH = 5             # the profiled fit runs 1/5 of the LM iterations
+TRIDIAG_F32_MAX = 1e-3        # exact solve, f32 vs f64, relative to scale
+TRIDIAG_DENSE_MAX = 1e-8      # exact solve in f64 vs a dense f64 solve
+CLI_DEFAULT_MEAN_MAX_PX = 4.0  # cli_default's mean log.csv error (CPU: 2.39)
+CLI_FUSED_GAP_MAX_PX = 0.5     # tests/test_fused_cli.py:57
+# cli_golden, as tests/test_torch_cli.py holds the port to the golden (its
+# docstring says why): per row 10 % + 0.02 px, the mean under 7.5 px
+GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_MEAN_MAX = 0.10, 0.02, 7.5
+# the golden's argv (tests/test_fullres_golden.py:35-37)
+GOLDEN_ARGV = ["150", "60", "10", "20", "5", "5.0", "25.0", "3.0",
+               "--s2-iters", "60", "--batched-windows", "--data-init",
+               "--init-from-anchors"]
 H_R, W_R = 1280, 720          # render size: the bench camera at full size
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
@@ -142,10 +174,15 @@ def nbytes(*ts):
 T_START = time.perf_counter()
 
 
+def _plain(value):
+    """numpy scalars as Python numbers in the phase lines."""
+    return value.item() if hasattr(value, "item") else str(value)
+
+
 def phase(label, /, **fields):
     """One phase's line; ``at_s`` is the script's wall time when it ends."""
     fields["at_s"] = time.perf_counter() - T_START
-    print(f"phase {label}: {json.dumps(fields)}", flush=True)
+    print(f"phase {label}: {json.dumps(fields, default=_plain)}", flush=True)
 
 
 class Checks:
@@ -596,10 +633,7 @@ def render_phase(w, frame_params, shp, verts, fit_s, checks):
     K3's launches in the render, those of them with the setup stage)."""
     import torch
     from smpltpu_torch.ops import LAUNCHES
-    from smpltpu_torch.pipeline.common import (
-        render_frames,
-        render_overlay_image,
-    )
+    from smpltpu_torch.pipeline.common import overlay_image, render_frames
     from smpltpu_torch.render.zbuffer import (
         face_bbox,
         face_setup,
@@ -660,6 +694,11 @@ def render_phase(w, frame_params, shp, verts, fit_s, checks):
     small = tuple(c * 130.0 / W_R for c in intr)
     k3_case("ragged_250x130", t(verts[::n // 4]), faces, small, checks,
             lambda cov, st, g: cov > 100, height=250, width=130)
+    # one frame per launch at the size of the CLI's video1 frames
+    # (270 x 480, H x W; its camera: f = 0.9 * 480, the centre)
+    k3_case("one_frame_270x480", t(verts[n // 3:n // 3 + 1]), faces,
+            (432.0, 432.0, 240.0, 135.0), checks,
+            lambda cov, st, g: cov > 1000, height=270, width=480)
 
     # 100 fitted frames: both entry points against the plain version, twice
     # (a z-buffer minimum does not depend on the order of the tiles' lists),
@@ -733,7 +772,7 @@ def render_phase(w, frame_params, shp, verts, fit_s, checks):
     agree = {}
     for k in (0, n // 2):
         img = np.zeros((H_R, W_R, 3), np.uint8)
-        render_overlay_image(w["model"], verts[k], img, w["cam"])
+        overlay_image(w["model"], verts[k], img, w["cam"])
         d_in_h, h_in_d = coverage_agreement(gray[k].cpu().numpy() > 0,
                                             img[..., 0] > 0)
         agree[k] = [float(d_in_h), float(h_in_d)]
@@ -829,6 +868,274 @@ def k2_phase(rng, dev, checks, cases):
     return k2
 
 
+def assemble_arrow(d, off, tm, b, c):
+    """The dense (F P + nS) x (F P + nS) matrix of each window's arrowhead
+    system [T B; B^T C], float64: T's diagonal blocks d (W, F, P, P) and
+    off-diagonal blocks off[:, f] * diag(tm), the border b (W, F, P, nS),
+    the corner c (W, nS, nS)."""
+    import torch
+    n_w, f, p, _ = d.shape
+    n_s = c.shape[-1]
+    n = f * p + n_s
+    a = torch.zeros((n_w, n, n), dtype=torch.float64, device=d.device)
+    for i in range(f):
+        r = slice(i * p, (i + 1) * p)
+        a[:, r, r] = d[:, i]
+        a[:, r, f * p:] = b[:, i]
+        a[:, f * p:, r] = b[:, i].transpose(-1, -2)
+    for i in range(f - 1):
+        e = torch.diag_embed(off[:, i, None] * tm)
+        a[:, i * p:(i + 1) * p, (i + 1) * p:(i + 2) * p] = e
+        a[:, (i + 1) * p:(i + 2) * p, i * p:(i + 1) * p] = e
+    a[:, f * p:, f * p:] = c
+    return a
+
+
+def tridiag_phase(first, k1_main, checks):
+    """Phase 7: the exact arrowhead solve (``linear="tridiag"``:
+    block-tridiagonal elimination + the shape Schur complement,
+    ``solve/multi_frame.py::arrow_tridiag``) on the first LM iteration's
+    real systems of both stages, in float32 on the card under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises); held
+    to the same solve in float64 (TRIDIAG_F32_MAX of scale) and that to a
+    dense float64 solve of the assembled system (TRIDIAG_DENSE_MAX). K1's
+    40 steps beside them: PCG's truncation, its distance from the exact
+    float64 solution. Times by CUDA events around eager calls (the solve
+    is a chain of small launches; the host's enqueueing is in it); device
+    time and launches per solve from the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from smpltpu_torch.ops import cg
+    from smpltpu_torch.solve.multi_frame import arrow_tridiag
+
+    def rel(x, ref):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+    out = {}
+    for shape, (a, k) in sorted(first.items()):
+        label = "stage1" if shape[0] == 1 else "stage2"
+        torch.cuda.synchronize()
+        synced = None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dp, dw = arrow_tridiag(*a)
+        except RuntimeError as e:
+            synced = str(e)[:300]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        checks(synced is None, f"tridiag {label}: the solve synchronized: {synced}")
+        if synced is not None:
+            continue
+        a64 = [t.double() for t in a]
+        dp64, dw64 = arrow_tridiag(*a64)
+        n_w, f, p = a[5].shape
+        x = torch.linalg.solve(assemble_arrow(*a64[:5]),
+                               -torch.cat([a64[5].flatten(1), a64[6]], 1))
+        dp_d, dw_d = x[:, :f * p].reshape(n_w, f, p), x[:, f * p:]
+        k1_p, k1_w = cg.arrow_pcg(*a, iters=k["iters"], rtol=k["rtol"])
+        pl_p, pl_w = cg.arrow_pcg_torch(*a64, iters=k["iters"], rtol=k["rtol"])
+        res = {"shape": list(a[0].shape), "n_s": int(a[6].shape[-1]),
+               "f32_vs_f64": [rel(dp, dp64), rel(dw, dw64)],
+               "f64_vs_dense": [rel(dp64, dp_d), rel(dw64, dw_d)],
+               "k1_f32_vs_exact": [rel(k1_p, dp_d), rel(k1_w, dw_d)],
+               "plain_pcg_f64_vs_exact": [rel(pl_p, dp_d), rel(pl_w, dw_d)],
+               "finite": bool(torch.isfinite(dp).all() and torch.isfinite(dw).all())}
+        del x, dp_d, dw_d
+        ok = (res["finite"] and max(res["f32_vs_f64"]) <= TRIDIAG_F32_MAX
+              and max(res["f64_vs_dense"]) <= TRIDIAG_DENSE_MAX)
+        checks(ok, f"tridiag {label}: f32 vs f64 {res['f32_vs_f64']} (max "
+                   f"{TRIDIAG_F32_MAX}), f64 vs dense {res['f64_vs_dense']} "
+                   f"(max {TRIDIAG_DENSE_MAX}), finite {res['finite']}")
+        res["ms"] = cuda_ms(lambda: arrow_tridiag(*a), 5)
+        res["k1_ms"] = k1_main[f"{label}_first_lm_iter"]["ms"]
+        res["f64_ms"] = cuda_ms(lambda: arrow_tridiag(*a64), 2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            arrow_tridiag(*a)
+            torch.cuda.synchronize()
+        dev_ev = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        res["device_launches_per_solve"] = sum(e.count for e in dev_ev)
+        res["device_ms_per_solve"] = sum(
+            e.self_device_time_total for e in dev_ev) / 1e3
+        res["top_kernels_ms"] = [
+            [e.key[:70], e.self_device_time_total / 1e3, e.count]
+            for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:5]]
+        phase(f"7 tridiag_{label}", ok=ok, **res)
+        out[label] = res
+        del a64, dp64, dw64
+    return out
+
+
+def cli_run(label, argv, root, checks, k3_check=False):
+    """The port's multi CLI, ``main(argv)`` on the card, into a directory
+    of its own under ``root``; the launch counts set to 0 just before and
+    read just after. ``k3_check`` holds every K3 launch of the run (its
+    ``rasterize_verts`` calls from the overlay) against ``rasterize_torch``
+    on the same face setup, pixel for pixel; those plain calls launch no
+    kernel. -> the run's numbers, its log.csv frames and errors."""
+    import contextlib
+    import io
+    import torch
+    import smpltpu_torch.pipeline.common as common
+    from smpltpu_torch.ops import LAUNCHES
+    from smpltpu_torch.pipeline import multi
+    from smpltpu_torch.render.zbuffer import face_setup, rasterize_torch
+
+    out = os.path.join(root, label)
+    full = argv[:3] + [out] + argv[3:] + ["--metrics-jsonl", out + ".jsonl"]
+    k3 = {"launches_checked": 0, "differing_px": 0, "sizes": set()}
+    real = common.rasterize_verts
+
+    def checked(verts, faces, fx, fy, cx, cy, height, width, out=None):
+        got = real(verts, faces, fx, fy, cx, cy, height, width, out=out)
+        want = rasterize_torch(face_setup(verts, faces, fx, fy, cx, cy),
+                               height, width)
+        k3["differing_px"] += sum(int((g != w).sum()) for g, w in zip(got, want))
+        k3["launches_checked"] += 1
+        k3["sizes"].add((int(verts.shape[0]), height, width))
+        return got
+    if k3_check:
+        common.rasterize_verts = checked
+    said = io.StringIO()
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(said), contextlib.redirect_stderr(said):
+            rc = multi.main(full)
+        torch.cuda.synchronize()
+    finally:
+        common.rasterize_verts = real
+    wall_s = time.perf_counter() - t0
+    launches = {k: v for k, v in LAUNCHES.items() if "@" not in k}
+    checks(rc == 0, f"cli {label}: rc {rc}; output ends {said.getvalue()[-600:]!r}")
+    res = {"rc": rc, "wall_s": wall_s, "launches": launches,
+           "argv": argv[3:]}
+    frames, errs = np.zeros(0, int), np.zeros(0)
+    if rc == 0:
+        rows = open(os.path.join(out, "log.csv")).read().splitlines()
+        checks(rows[0] == "frame,mean_pixel_error_px,time_ms",
+               f"cli {label}: log.csv header {rows[0]!r}")
+        frames = np.array([int(r.split(",")[0]) for r in rows[1:]])
+        errs = np.array([float(r.split(",")[1]) for r in rows[1:]])
+        events = [json.loads(line) for line in open(out + ".jsonl")]
+        # the fused path's window events carry shares of its one time
+        fused = [e["ms"] for e in events if e["event"] == "fused_two_stage"]
+        res["stage_ms"] = ({"fused": fused[0]} if fused else {
+            "stage1": sum(e["ms"] for e in events if e["event"] == "stage1"),
+            "windows": sum(e["ms"] for e in events if e["event"] == "window")})
+        res.update(rows=len(frames), mean_px=float(errs.mean()),
+                   max_px=float(errs.max()), finite=bool(np.isfinite(errs).all()))
+        checks(res["finite"], f"cli {label}: non-finite errors in log.csv")
+        pz = np.load(os.path.join(out, "params_multi.npz"))
+        res["params_shape"] = [list(pz["params"].shape), list(pz["shape"].shape)]
+        res["pngs"] = len([n for n in os.listdir(out) if n.endswith("_multi.png")])
+        res["loss_curve_rows"] = len(open(os.path.join(
+            out, "loss_curve.txt")).read().splitlines()) - 1
+    if k3_check:
+        res["k3_check"] = dict(k3, sizes=sorted(k3["sizes"]))
+        checks(k3["launches_checked"] > 0 and k3["differing_px"] == 0
+               and k3["launches_checked"] == launches.get("raster", 0),
+               f"cli {label}: K3 against its plain version: {res['k3_check']}, "
+               f"K3 launches {launches.get('raster', 0)}")
+    return res, frames, errs
+
+
+def cli_phases(checks):
+    """Phase 8: the port's CLI on the card, three runs of ``main``:
+    ``cli_default`` (the full-width synthetic model, video1's keypoints and
+    its 480 x 270 frames, the default argv: sequential windows, the exact
+    solve, the host painter), ``cli_golden`` (the golden's model, argv and
+    blank 1280 x 720 (H x W) frames, plus --jax-render: K3 per frame; its
+    log.csv held to tests/data/fullres_golden_video1.npz) and
+    ``cli_kernels`` (the golden's argv at full width, --fused-stages
+    --linear pcg_kernel --jax-render: K1, K2 and K3, beside the same argv
+    with --linear pcg and the sequential stages)."""
+    import shutil
+    from smpltpu_torch.io import save_smpl_npz
+    from smpltpu_torch.models.synthetic import make_synthetic_model
+    from smpltpu_torch.utils.image import imwrite
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    kps = os.path.join(here, "data", "keypoints", "video1")
+    frames_dir = os.path.join(here, "data", "frames_annotated", "video1")
+    root = os.path.join(here, "build", "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "blank"))
+    n_kp = len([n for n in os.listdir(kps) if n.endswith(".json")])
+    for i in range(n_kp):   # frame names sort as the JSONs do
+        imwrite(os.path.join(root, "blank", f"frame_{10 * i:04d}.png"),
+                np.zeros((H_R, W_R, 3), np.uint8))
+    small = os.path.join(root, "model300.npz")
+    save_smpl_npz(small, make_synthetic_model(n_verts=300, seed=0))
+
+    # cli_default: anchors 0, 10, 20, 30, then windows at 0, 15, 30
+    res, frames, errs = cli_run(
+        "cli_default", ["synthetic", kps, frames_dir], root, checks)
+    if res["rc"] == 0:
+        ok = bool(list(frames[:4]) == [0, 10, 20, 30]
+              and set(frames[4:]) == set(range(n_kp))
+              and res["pngs"] == n_kp
+              and res["params_shape"] == [[n_kp, 76], [10]]
+              and res["loss_curve_rows"] == 1000
+              and res["mean_px"] < CLI_DEFAULT_MEAN_MAX_PX
+              and res["launches"].get("lbs", 0) > 0)
+        checks(ok, f"cli_default: {res}")
+        res["ok"] = ok
+    phase("8 cli_default", **res)
+
+    # cli_golden: row by row against the golden
+    res, frames, errs = cli_run(
+        "cli_golden", [small, kps, os.path.join(root, "blank")] + GOLDEN_ARGV
+        + ["--jax-render"], root, checks, k3_check=True)
+    if res["rc"] == 0:
+        g = np.load(os.path.join(here, "tests", "data",
+                                 "fullres_golden_video1.npz"))
+        same_rows = np.array_equal(frames, g["frames"])
+        drift = np.abs(errs - g["errs"]) if same_rows else np.array([np.inf])
+        limit = GOLDEN_ATOL + GOLDEN_RTOL * np.abs(g["errs"])
+        ok = bool(same_rows and (drift <= limit).all()
+                  and errs.mean() < GOLDEN_MEAN_MAX
+                  and res["launches"].get("raster", 0) == n_kp)
+        checks(ok, f"cli_golden: drift {drift.max()} px, mean {errs.mean()} "
+                   f"against {g['errs'].mean()}, {res}")
+        off = drift > 0.02 + 0.02 * np.abs(g["errs"])   # the JAX test's gate
+        res.update(ok=ok, golden_mean_px=float(g["errs"].mean()),
+                   mean_drift_rel=float(abs(errs.mean() - g["errs"].mean())
+                                        / g["errs"].mean()),
+                   max_drift_px=float(drift.max()),
+                   max_drift_rel=float((drift / np.maximum(
+                       np.abs(g["errs"]), 1e-9)).max()),
+                   max_drift_of_limit=float((drift / limit).max()),
+                   rows_within_2pct=int((~off).sum()),
+                   rows_past_2pct=[[int(f), float(e), float(w)] for f, e, w
+                                   in zip(frames[off], errs[off],
+                                          g["errs"][off])])
+    phase("8 cli_golden", **res)
+
+    # cli_kernels: K1 + K2 + K3 through the fused path, beside plain PCG
+    runs = {}
+    for label, extra in (("cli_kernels", ["--fused-stages", "--linear",
+                                          "pcg_kernel", "--jax-render"]),
+                         ("cli_kernels_plain_pcg", ["--linear", "pcg",
+                                                    "--jax-render"])):
+        runs[label] = cli_run(
+            label, ["synthetic", kps, os.path.join(root, "blank")]
+            + GOLDEN_ARGV + extra, root, checks, k3_check=True)[0]
+    res, plain = runs["cli_kernels"], runs["cli_kernels_plain_pcg"]
+    if res["rc"] == 0 and plain["rc"] == 0:
+        gap = abs(res["mean_px"] - plain["mean_px"])
+        ok = bool(gap < CLI_FUSED_GAP_MAX_PX
+              and all(res["launches"].get(k, 0) > 0
+                      for k in ("arrow_pcg", "lbs", "raster"))
+              and plain["launches"].get("arrow_pcg", 0) == 0)
+        checks(ok, f"cli_kernels: mean gap {gap} px, launches "
+                   f"{res['launches']}, plain PCG's {plain['launches']}")
+        res.update(ok=ok, plain_pcg=plain, mean_gap_px=gap)
+    phase("8 cli_kernels", **res)
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv):
     import torch
 
@@ -841,7 +1148,7 @@ def main(argv):
     from smpltpu_torch.ops import LAUNCHES, cg
     from smpltpu_torch.pipeline.common import (
         batched_frame_eval,
-        render_overlay_image,
+        overlay_image,
     )
 
     checks = Checks()
@@ -923,6 +1230,9 @@ def main(argv):
         k1_main[label] = k1_compare(label, a, k["iters"], k["rtol"], checks,
                                     real_system=True, phase_no=5)
     checks(len(k1_main) == 2, f"captured K1 systems of {sorted(first)}")
+    # 7. the exact solve on the same systems
+    tridiag = tridiag_phase(first, k1_main, checks)
+    del first
 
     # the timed run, with the launch counts of the main path
     LAUNCHES.clear()
@@ -974,7 +1284,7 @@ def main(argv):
     covered = []
     for k in (0, n // 2):
         img = np.zeros((1280, 720, 3), np.uint8)
-        render_overlay_image(w["model"], verts[k], img, w["cam"])
+        overlay_image(w["model"], verts[k], img, w["cam"])
         covered.append(int(np.count_nonzero(img.any(axis=-1))))
     checks(all(c > 0 for c in covered), f"rendered coverage {covered}")
     phase("5 render", frames=[0, n // 2], covered_px=covered)
@@ -995,9 +1305,40 @@ def main(argv):
           stage2_ms=run_plain.timings["stage2_s"] * 1e3,
           frames_per_s=n / plain_s, full_batch_residual_px=residual_plain,
           gap_px=gap)
+    del run_plain, st2p
+
+    # the same fit with the exact solve (linear="tridiag", the library's
+    # and the CLI's default), once
+    run_tri = build_fit(w, "tridiag", dev)
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st1t, st2t = run_tri(*w["args"])
+    torch.cuda.synchronize()
+    tri_s = time.perf_counter() - t0
+    residual_tri = full_batch_residual(w, *write_back(w, st2t))
+    tri_trips = int(st1t.iters_run) + int(st2t.iters_run.max())
+    checks(np.isfinite(residual_tri) and residual_tri < RESIDUAL_MAX_PX,
+           f"tridiag fit: full-batch residual {residual_tri} px")
+    checks(LAUNCHES["arrow_pcg"] == 0, "the tridiag fit launched K1")
+    phase("5 main_path_tridiag", linear="tridiag", fit_s=tri_s,
+          stage1_ms=run_tri.timings["stage1_s"] * 1e3,
+          stage2_ms=run_tri.timings["stage2_s"] * 1e3,
+          frames_per_s=n / tri_s, stage1_iters_run=int(st1t.iters_run),
+          stage2_iters_run_max=int(st2t.iters_run.max()),
+          stage2_converged=int(st2t.converged.sum()),
+          full_batch_residual_px=residual_tri,
+          pcg_kernel_fit_s=fit_s, pcg_kernel_residual_px=residual,
+          slower_than_pcg_kernel=tri_s / fit_s,
+          solve_device_launches_per_lm_trip={
+              k: v["device_launches_per_solve"] for k, v in tridiag.items()},
+          lm_trips=tri_trips)
+    del run_tri, st1t, st2t
 
     k3, k3_launches, k3_setup_launches = render_phase(
         w, frame_params, shp, verts, fit_s, checks)
+    # 8. the port's CLI, K1, K2 and K3 through its product entry point
+    cli_phases(checks)
     fit_profile(w, dev, checks)
 
     foreign = sorted(m for m in sys.modules

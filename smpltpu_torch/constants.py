@@ -7,6 +7,15 @@ The parity notes (reference source lines) are in the original.
 
 import numpy as np
 
+# MediaPipe (33 landmarks) -> SMPL (24 joints): MP_MAP[smpl_jid] is the
+# MediaPipe landmark index, or -1 where the joint is not observed.
+MP_MAP = np.array(
+    [-1, 23, 24, -1, 25, 26, -1, 27, 28, -1,
+     31, 32, -1, -1, -1, 0, 11, 12, 13, 14,
+     15, 16, -1, -1],
+    dtype=np.int32,
+)
+
 # The SMPL joint ids used as keypoint observations, in the reference's
 # 17-slot order: the pelvis (joint 0) fills the last two slots, so it is
 # observed twice (SURVEY.md section 2.1).
@@ -25,8 +34,14 @@ HUBER_DELTA = 3.0
 SCALE_MIN = 0.3
 SCALE_MAX = 3.0
 
+# Keypoints with a lower MediaPipe visibility are dropped.
+VISIBILITY_THRESHOLD = 0.5
+
 # Pinhole intrinsics heuristic: f = 0.9*max(W,H), fx=fy, cx=W/2, cy=H/2.
 FOCAL_FACTOR = 0.9
+
+# Initial body placement: this many metres in front of the camera.
+INIT_ROOT_DEPTH = 3.0
 
 # SMPL topology dimensions (standard basicModel_{f,m}_lbs_10_207_0).
 SMPL_NUM_JOINTS = 24

@@ -7,8 +7,12 @@ Project camera-space vertices with the pinhole model, backface-cull
 painter's sort far-to-near by mean triangle depth, fill. The geometry stage
 is vectorized numpy; the fill uses cv2 when it is installed and a numpy
 half-plane rasterizer otherwise. (The original's third fill, the JAX
-package's native C library, has no counterpart here.) The on-device
-z-buffer is ``render/zbuffer.py``.
+package's native C library, has no counterpart here.) The numpy fill is
+vectorized over faces here, where the original loops over them one at a
+time: a machine without cv2 paints every frame of the CLI through it
+(~0.9 s a frame of the full-width body at 480 x 270 in the loop). It sets
+the same pixels to the same colours. The on-device z-buffer is
+``render/zbuffer.py``.
 """
 
 from __future__ import annotations
@@ -63,29 +67,52 @@ def build_drawlist(verts_cam: np.ndarray, faces: np.ndarray,
     return proj[faces[order]], shade[order]
 
 
+FILL_CHUNK_PX = 1 << 20   # candidate pixels tested at once by the numpy fill
+
+
 def _fill_triangles_numpy(img: np.ndarray, tris: np.ndarray,
                           colors: np.ndarray) -> None:
-    """Pure-numpy scanline fill (no anti-aliasing)."""
+    """Pure-numpy half-plane fill (no anti-aliasing), in draw order: a
+    pixel takes the colour of the last triangle that covers it. The
+    pixels of the triangles' clipped boxes are tested in chunks of about
+    FILL_CHUNK_PX with the original's per-triangle arithmetic (pixel
+    centres, float64 edge functions, the 1e-12 edge tolerance)."""
     h, w = img.shape[:2]
-    for tri, col in zip(tris, colors):
-        x0 = max(int(np.floor(tri[:, 0].min())), 0)
-        x1 = min(int(np.ceil(tri[:, 0].max())) + 1, w)
-        y0 = max(int(np.floor(tri[:, 1].min())), 0)
-        y1 = min(int(np.ceil(tri[:, 1].max())) + 1, h)
-        if x0 >= x1 or y0 >= y1:
-            continue
-        xx, yy = np.meshgrid(np.arange(x0, x1) + 0.5, np.arange(y0, y1) + 0.5)
-        inside = np.ones(xx.shape, dtype=bool)
+    x0 = np.maximum(np.floor(tris[:, :, 0].min(1)).astype(np.int64), 0)
+    x1 = np.minimum(np.ceil(tris[:, :, 0].max(1)).astype(np.int64) + 1, w)
+    y0 = np.maximum(np.floor(tris[:, :, 1].min(1)).astype(np.int64), 0)
+    y1 = np.minimum(np.ceil(tris[:, :, 1].max(1)).astype(np.int64) + 1, h)
+    bw = np.maximum(x1 - x0, 0)
+    n_px = bw * np.maximum(y1 - y0, 0)
+    flat = img.reshape(h * w, -1)
+    ends = np.cumsum(n_px)
+    lo = 0
+    while lo < len(tris):
+        # the triangles whose boxes fit the chunk (at least one)
+        hi = max(int(np.searchsorted(ends, (ends[lo] - n_px[lo])
+                                     + FILL_CHUNK_PX, side="right")), lo + 1)
+        f = np.repeat(np.arange(lo, hi), n_px[lo:hi])
+        off = np.arange(len(f)) - np.repeat(ends[lo:hi] - n_px[lo:hi]
+                                            - (ends[lo] - n_px[lo]),
+                                            n_px[lo:hi])
+        px = x0[f] + off % bw[f]
+        py = y0[f] + off // bw[f]
+        xx, yy = px + 0.5, py + 0.5
+        inside = np.ones(len(f), dtype=bool)
         sign = None
         for i in range(3):
-            ax, ay = tri[i]
-            bx, by = tri[(i + 1) % 3]
+            ax, ay = tris[f, i, 0], tris[f, i, 1]
+            bx, by = tris[f, (i + 1) % 3, 0], tris[f, (i + 1) % 3, 1]
             e = (bx - ax) * (yy - ay) - (by - ay) * (xx - ax)
             s = e >= 0
             if sign is None:
                 sign = s
             inside &= (s == sign) | (np.abs(e) < 1e-12)
-        img[y0:y1, x0:x1][inside] = col
+        pix, f = (py * w + px)[inside], f[inside]
+        # the last triangle at each pixel: the first in reversed order
+        last = len(pix) - 1 - np.unique(pix[::-1], return_index=True)[1]
+        flat[pix[last]] = colors[f[last]]
+        lo = hi
 
 
 def render_mesh_overlay(

@@ -1,10 +1,25 @@
-"""Solvers (port of ``smpltpu/solve``): the multi-frame LM and the fused
-two-stage pipeline."""
+"""Solvers (port of ``smpltpu/solve``): the multi-frame LM, its exact
+block-tridiagonal solve, the chunked window fit, the fused two-stage
+pipeline and the data-driven frame initialization."""
 
+from smpltpu_torch.solve.init import (  # noqa: F401
+    aa_from_rotation,
+    aa_from_rotation_batch,
+    estimate_frame_init,
+    estimate_frame_init_batch,
+    estimate_root_orient,
+    estimate_root_orient_batch,
+    rest_joints_cam,
+    rotation_from_aa,
+    rotation_from_aa_batch,
+)
 from smpltpu_torch.solve.multi_frame import (  # noqa: F401
     MultiFrameConfig,
     MultiFrameResult,
     MultiFrameState,
+    build_chunked_window_fit,
     build_multi_fitter,
+    fit_multi_frame,
 )
+from smpltpu_torch.solve.tridiag import block_tridiag_solve  # noqa: F401
 from smpltpu_torch.solve.two_stage import build_fused_two_stage  # noqa: F401

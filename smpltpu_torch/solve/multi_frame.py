@@ -15,17 +15,19 @@ the convergence-exit ``lax.while_loop`` becomes a masked Python loop:
     ``converged.all()`` is read on the host once per trip (one device sync
     per LM iteration).
 
-The arrowhead GN system of each step goes to ``linear="pcg"`` (the plain
-PyTorch PCG loop, any dtype and device) or ``linear="pcg_kernel"`` (K1,
-the CUDA kernel of :mod:`smpltpu_torch.ops.cg`, for float32 CUDA tensors;
-the plain loop on the CPU). Both run the same recursion. The reference's
-exact solvers ("tridiag", "cr") and "pcg_block" are not ported yet
-(ROADMAP.md).
+The arrowhead GN system of each step goes to ``linear="tridiag"`` (the
+default: the exact solve, block-tridiagonal elimination of the pose
+blocks by :mod:`smpltpu_torch.solve.tridiag` and the shape Schur
+complement on top), ``linear="pcg"`` (the plain PyTorch PCG loop, any
+dtype and device) or ``linear="pcg_kernel"`` (K1, the CUDA kernel of
+:mod:`smpltpu_torch.ops.cg`, for float32 CUDA tensors; the plain loop on
+the CPU). The two PCG options run the same recursion. "cr" is not ported
+(ROADMAP.md, "Do not port") and "pcg_block" not yet (ROADMAP.md, M13).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as tnf
@@ -41,6 +43,7 @@ from smpltpu_torch.solve.lm import (
     _huber_rho,
     huber_correct_weight_and_slope,
 )
+from smpltpu_torch.solve.tridiag import block_tridiag_solve
 
 
 class MultiFrameConfig(NamedTuple):
@@ -133,6 +136,23 @@ def corrected_frame_assembly(p_f, w, kp_f, r0_f, cam: Camera,
     return out
 
 
+def arrow_tridiag(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w):
+    """Exact solve of the arrowhead system [T B; B^T C] (dp, dw) = -(g_p,
+    g_w) of each window (the reference's ``arrow_tridiag``), in K1's
+    argument layout: d_blocks (W, F, P, P), off_scale (W, F-1), tmask (P,),
+    b_pw (W, F, P, nS), c_reg (W, nS, nS), g_p (W, F, P), g_w (W, nS).
+    T y = g_p and T Y = B in one block-tridiagonal elimination, then the
+    nS x nS Schur complement. Nothing in it waits for the device."""
+    rhs = torch.cat([g_p[..., None], b_pw], dim=-1)
+    sol = block_tridiag_solve(d_blocks, off_scale, tmask, rhs)
+    y, cap_y = sol[..., 0], sol[..., 1:]
+    schur = c_reg - torch.einsum("wfps,wfpt->wst", b_pw, cap_y)
+    rhs_w = -g_w + torch.einsum("wfps,wfp->ws", b_pw, y)
+    # solve_ex: no host read of the LU's info (a device sync)
+    dw = torch.linalg.solve_ex(schur, rhs_w, check_errors=False)[0]
+    return -y - torch.einsum("wfps,ws->wfp", cap_y, dw), dw
+
+
 def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
                        n_shapes: int, *, device, dtype):
     """Return fit(params0 (W, F, P), shape0 (W, nS) or (nS,), kp
@@ -143,11 +163,12 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
 
     frame_valid masks padding frames: their keypoints must already be
     masked; here it also cuts the temporal coupling across the padding."""
-    if cfg.linear in ("tridiag", "cr", "pcg_block"):
+    if cfg.linear in ("cr", "pcg_block"):
         raise NotImplementedError(
-            f"linear={cfg.linear!r} is not ported yet (ROADMAP.md); use "
-            "'pcg' or 'pcg_kernel'")
-    if cfg.linear not in ("pcg", "pcg_kernel"):
+            f"linear={cfg.linear!r} is not ported (ROADMAP.md: 'cr' under "
+            "'Do not port', 'pcg_block' with M13); use 'tridiag', 'pcg' or "
+            "'pcg_kernel'")
+    if cfg.linear not in ("tridiag", "pcg", "pcg_kernel"):
         raise ValueError(f"unknown linear solver {cfg.linear!r} "
                          "(tridiag | cr | pcg | pcg_block | pcg_kernel)")
 
@@ -222,6 +243,8 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
 
     def arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w):
         args = (d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w)
+        if cfg.linear == "tridiag":
+            return arrow_tridiag(*args)
         if cfg.linear == "pcg":
             return cg_ops.arrow_pcg_torch(*args, iters=cfg.cg_iters,
                                           rtol=cfg.cg_rtol)
@@ -412,3 +435,51 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         return result
 
     return fit
+
+
+def build_chunked_window_fit(fitter, chunk_size: int):
+    """Solve a batch of windows in chunks of ``chunk_size`` (port of the
+    reference's function of the same name): fit(params0 (W, F, P),
+    shape0 (W, nS), kp, r0, frame_valid (W, F)) -> MultiFrameResult over
+    all W windows, the chunks' results concatenated.
+
+    The batched fitter runs until its slowest window has converged, so a
+    wide batch pays that window's trips for all of its windows; each chunk
+    here stops on its own. Per-window results equal those of one batch: a
+    converged window keeps its state, so its trajectory does not depend on
+    how many trips its batch runs. Unlike the reference under ``jax.vmap``,
+    this also holds with ``cfg.cg_rtol > 0``: the port's PCG (plain and
+    K1) stops each window's CG on that window's own residual."""
+    if chunk_size < 1:
+        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+
+    def fit(params0, shape0, kp, r0, frame_valid):
+        parts = [fitter(params0[s:s + chunk_size], shape0[s:s + chunk_size],
+                        kp[s:s + chunk_size], r0[s:s + chunk_size],
+                        frame_valid[s:s + chunk_size])
+                 for s in range(0, params0.shape[0], chunk_size)]
+        return MultiFrameResult(*(torch.cat(f) for f in zip(*parts)))
+
+    return fit
+
+
+_multi_cache: dict = {}
+
+
+def fit_multi_frame(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
+                    params0: torch.Tensor, shape0: torch.Tensor,
+                    kp: torch.Tensor, r0: torch.Tensor,
+                    frame_valid: Optional[torch.Tensor] = None,
+                    ) -> MultiFrameResult:
+    """``build_multi_fitter`` with a cache per (problem, config, frame
+    count, dtype, device): the fitter of this call's inputs, called on
+    them."""
+    key = (id(spec), id(cam), cfg, int(params0.shape[-2]), params0.dtype,
+           params0.device, int(shape0.shape[-1]))
+    if key not in _multi_cache:
+        # pin (spec, cam) in the value: id() keys are only unique while the
+        # objects are alive, so a recycled id must not hit a stale fitter
+        _multi_cache[key] = ((spec, cam), build_multi_fitter(
+            spec, cam, cfg, int(shape0.shape[-1]), device=params0.device,
+            dtype=params0.dtype))
+    return _multi_cache[key][1](params0, shape0, kp, r0, frame_valid)

@@ -1,0 +1,636 @@
+"""The port's multi CLI (``smpltpu_torch.pipeline.multi``) and the modules
+under it against the JAX package on the CPU.
+
+Copied modules (``io/*``, ``models/registry.py``, ``utils/image.py``,
+``utils/ckpt.py``, ``utils/obs.py``, the ``solve/init.py`` estimators, the
+dataset half of ``pipeline/common.py``) give the same outputs as their
+originals on the same inputs, exactly where they compute in numpy.
+
+The CLI runs in float32 on both sides (``main(argv, device="cpu")`` here;
+the JAX CLI with ``--mesh 1``, its one-device path, which is the port's).
+On the small dataset of ``tests/test_pipeline.py`` the two follow the same
+accept/reject sequences and their log.csv error vectors agree to 2.4e-4 px
+(measured), so they are held to 1e-2 px, shapes to 5e-2 as
+``tests/test_fused_cli.py`` holds fused against sequential.
+
+The full-resolution golden (``tests/data/fullres_golden_video1.npz``) was
+recorded by the JAX CLI under this suite's eight virtual CPU devices, so
+its stage 1 ran the sharded halo-exchange PCG; the port, like the JAX CLI
+with ``--mesh 1``, runs it on one device with the exact solve. Stage 2's
+60 LM iterations end short of convergence, and f32 rounding flips single
+accept/reject decisions: fed the golden run's own stage-2 inputs, the
+port's windows follow its accept sequence up to LM iteration 19, 34 and
+25 (of 60) and then part. The port meets the JAX test's 2 % (+0.02 px) on
+49 of 52 rows; the last window's frames 35-37 drift by up to 5.8 %
+(0.72 px). The JAX CLI itself on one device drifts by up to 9.3 % (frames
+4 and 7, 1.64 px), and so does the port on an H100 (frames 4, 7 and
+35-37 past 2 %, at most 9.3 %, 1.65 px; its mean 1.2 % above the
+golden's). The port is held to 10 % (+0.02 px) per row and to the JAX
+test's absolute gate (mean < 7.5 px), here and in ``chip_smoke.py``.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import smpltpu.energy as jen
+import smpltpu.io as j_io
+import smpltpu.models.registry as j_registry
+import smpltpu.pipeline.common as j_common
+import smpltpu.solve.init as j_init
+import smpltpu.utils.ckpt as j_ckpt
+import smpltpu.utils.image as j_image
+import smpltpu.utils.obs as j_obs
+import smpltpu_torch.io as t_io
+import smpltpu_torch.models.registry as t_registry
+import smpltpu_torch.pipeline.common as t_common
+import smpltpu_torch.solve.init as t_init
+import smpltpu_torch.utils.ckpt as t_ckpt
+import smpltpu_torch.utils.image as t_image
+import smpltpu_torch.utils.obs as t_obs
+from smpltpu.constants import init_root_rotation
+from smpltpu.models import SMPLModel as JModel
+from smpltpu.models.synthetic import make_synthetic_gmm, make_synthetic_model
+from smpltpu.pipeline import multi as j_multi
+from smpltpu.utils import default_intrinsics as j_intrinsics
+from smpltpu_torch.energy import make_skeleton_spec
+from smpltpu_torch.models import SMPLModel
+from smpltpu_torch.pipeline import multi as t_multi
+from smpltpu_torch.utils import default_intrinsics
+from tests.conftest import fixture_path
+from tests.test_pipeline import N_FRAMES, _make_dataset
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run many small LAPACK and elementwise calls; under the
+    suite's parallel workers, MKL's and OpenMP's eight threads a process
+    oversubscribe the cores and spin (measured: 237 s against 19 s for
+    the same tests beside six busy processes). One thread per process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+VIDEO1_KPS = fixture_path("data/keypoints/video1")
+VIDEO1_FRAMES = fixture_path("data/frames_annotated/video1")
+GOLDEN = os.path.join(REPO, "tests", "data", "fullres_golden_video1.npz")
+# the numeric argv of the JAX package's multi CLI tests
+NUMERIC = ["30", "30", "3", "4", "1", "2.0", "25.0", "1.0", "--s2-iters", "20"]
+LOG_ATOL_PX, SHAPE_ATOL = 1e-2, 5e-2
+GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_MEAN_MAX = 0.10, 0.02, 7.5
+
+
+@pytest.fixture(scope="module")
+def dataset(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("cli")
+    return _make_dataset(tmp, np.random.default_rng(3), empty_frames=())
+
+
+def _log(out):
+    rows = open(os.path.join(out, "log.csv")).read().splitlines()
+    assert rows[0] == "frame,mean_pixel_error_px,time_ms"
+    return (np.array([int(r.split(",")[0]) for r in rows[1:]]),
+            np.array([float(r.split(",")[1]) for r in rows[1:]]))
+
+
+def _run_both(dataset, tmp_path, extra, numeric=NUMERIC):
+    """The JAX CLI (one device) and the port's (CPU) on the same argv; the
+    two output directories."""
+    outs = {}
+    for tag, main in (("jax", j_multi.main),
+                      ("torch", lambda a: t_multi.main(a, device="cpu"))):
+        outs[tag] = str(tmp_path / tag)
+        argv = list(dataset) + [outs[tag]] + numeric + ["--mesh", "1"] + extra
+        assert main(argv) == 0, tag
+    return outs["jax"], outs["torch"]
+
+
+# ------------------------------------------------------------ the copies
+
+
+def test_smpl_npz_copy_matches_reference(tmp_path):
+    model = make_synthetic_model(n_verts=120, seed=4)
+    path = str(tmp_path / "m.npz")
+    t_io.save_smpl_npz(path, model)
+    got, want = t_io.load_smpl_npz(path), j_io.load_smpl_npz(path)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+    kt = np.array([[4294967295, 0, 0, 1], [0, 1, 2, 3]], np.int64)
+    np.testing.assert_array_equal(t_io.fix_kintree(kt), j_io.fix_kintree(kt))
+
+
+def test_gmm_copy_matches_reference(tmp_path):
+    gmm = make_synthetic_gmm(n_comps=4, dim=69, seed=2)
+    p_t, p_j = str(tmp_path / "t.txt"), str(tmp_path / "j.txt")
+    t_io.save_pose_prior_txt(p_t, gmm["weights"], gmm["means"], gmm["covs"])
+    j_io.save_pose_prior_txt(p_j, gmm["weights"], gmm["means"], gmm["covs"])
+    assert open(p_t).read() == open(p_j).read()
+    got, want = t_io.load_pose_prior_txt(p_t), j_io.load_pose_prior_txt(p_t)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("width,height,default_vis", [(720, 1280, 1.0),
+                                                      (480, 270, 0.0)])
+def test_keypoint_dir_copy_matches_reference(width, height, default_vis):
+    """The 38 MediaPipe JSONs of data/keypoints/video1 (the first four
+    empty) through both loaders, and a round trip: the port's dense batch
+    written back as MediaPipe JSONs reads back unchanged."""
+    got, paths = t_io.load_keypoint_dir(VIDEO1_KPS, width, height, default_vis)
+    want, j_paths = j_io.load_keypoint_dir(VIDEO1_KPS, width, height,
+                                           default_vis, backend="python")
+    assert paths == j_paths and len(paths) == 38
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == want.dtype and got.shape == (38, 17, 4)
+    assert not got[:4, :, 3].any() and got[4:, :, 3].any()
+
+
+def test_keypoint_dir_round_trip(tmp_path):
+    """video1's dense batch written back as MediaPipe JSONs (each observed
+    joint as its landmark in normalized coordinates, visibility 0.95; the
+    pelvis comes back as the hips' midpoint) reads back as the same batch
+    through both loaders."""
+    from smpltpu_torch.constants import MP_MAP
+    w, h = 720, 1280
+    kp, paths = t_io.load_keypoint_dir(VIDEO1_KPS, w, h, 1.0)
+    for f, path in enumerate(paths):
+        lms = []
+        if kp[f, :, 3].any():
+            lms = [{"x": 0.0, "y": 0.0, "z": 0.0, "visibility": 0.0}
+                   for _ in range(33)]
+            for jid, u, v, ok in kp[f]:
+                mp = int(MP_MAP[int(jid)])
+                if ok and mp >= 0:
+                    lms[mp] = {"x": u / w, "y": v / h, "z": 0.0,
+                               "visibility": 0.95}
+        with open(tmp_path / os.path.basename(path), "w") as fh:
+            json.dump(lms, fh)
+    got, _ = t_io.load_keypoint_dir(str(tmp_path), w, h, 1.0)
+    want, _ = j_io.load_keypoint_dir(str(tmp_path), w, h, 1.0,
+                                     backend="python")
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[..., [0, 3]], kp[..., [0, 3]])
+    np.testing.assert_allclose(got[..., 1:3], kp[..., 1:3], rtol=0, atol=1e-9)
+
+
+def test_registry_copy_matches_reference(tmp_path):
+    for spec in ("synthetic:150",):
+        got, want = t_registry.resolve_model(spec), j_registry.resolve_model(spec)
+        assert got.keys() == want.keys()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    stub = tmp_path / "stub.npz"
+    stub.write_text("version https://git-lfs.github.com/spec/v1\noid sha256:0\n")
+    real = tmp_path / "model.npz"
+    t_io.save_smpl_npz(str(real), make_synthetic_model(n_verts=50, seed=1))
+    for p in (stub, real):
+        assert t_registry._is_lfs_stub(str(p)) == j_registry._is_lfs_stub(str(p))
+    assert t_registry._is_lfs_stub(str(stub))
+    assert (t_registry.model_npz_in_dir(str(tmp_path))
+            == j_registry.model_npz_in_dir(str(tmp_path)))
+    got = t_registry.resolve_model(str(tmp_path))
+    np.testing.assert_array_equal(got["v_template"],
+                                  j_registry.resolve_model(str(tmp_path))["v_template"])
+    for name in ("female", "no_such_model"):
+        assert t_registry.find_model_file(name) == j_registry.find_model_file(name)
+    with pytest.raises(Exception):
+        t_registry.resolve_model(str(stub))
+
+
+def test_image_copy_reads_video1_like_cv2(monkeypatch):
+    """All 38 PNGs of data/frames_annotated/video1 (480 x 270) read equal
+    to cv2 and to the reference's reader, also through the port's own PNG
+    codec (no cv2, no PIL: the card's machine has neither)."""
+    import cv2
+    paths = t_io.list_sorted(VIDEO1_FRAMES, t_common.IMAGE_EXTS)
+    assert len(paths) == 38
+    monkeypatch.setattr(t_image, "cv2", None)
+    monkeypatch.setattr(t_image, "Image", None)
+    for p in paths:
+        want = cv2.imread(p)
+        assert want.shape == (270, 480, 3)
+        np.testing.assert_array_equal(t_image.imread(p), want)
+        np.testing.assert_array_equal(j_image.imread(p), want)
+    assert t_image.imread(os.path.join(VIDEO1_FRAMES, "missing.png")) is None
+
+
+@pytest.mark.parametrize("backends", ["cv2", "none"])
+def test_image_write_round_trip(tmp_path, monkeypatch, backends):
+    """imwrite then imread gives the image back, through cv2 and through
+    the port's PNG codec; the codec writes the reference's bytes."""
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, size=(37, 53, 3), dtype=np.uint8)
+    if backends == "none":
+        monkeypatch.setattr(t_image, "cv2", None)
+        monkeypatch.setattr(t_image, "Image", None)
+    path = str(tmp_path / "a.png")
+    assert t_image.imwrite(path, img)
+    np.testing.assert_array_equal(t_image.imread(path), img)
+    t_image._png_write(str(tmp_path / "t.png"), img)
+    j_image._png_write(str(tmp_path / "j.png"), img)
+    assert (tmp_path / "t.png").read_bytes() == (tmp_path / "j.png").read_bytes()
+    np.testing.assert_array_equal(t_image._png_read(str(tmp_path / "t.png")),
+                                  j_image._png_read(str(tmp_path / "j.png")))
+
+
+def test_png_decoder_filters_match_reference(tmp_path):
+    """The decoder's filters 0-4 (the port vectorizes Sub) on a PNG whose
+    rows use each of them, against the reference's decoder and cv2."""
+    import struct
+    import zlib
+
+    import cv2
+    rng = np.random.default_rng(1)
+    h, w = 10, 7
+    img = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    rows, prev = [], np.zeros(w * 3, np.int64)
+    for y in range(h):
+        line = img[y].reshape(-1).astype(np.int64)
+        ftype = y % 5
+        left = np.concatenate([np.zeros(3, np.int64), line[:-3]])
+        upleft = np.concatenate([np.zeros(3, np.int64), prev[:-3]])
+        if ftype == 0:
+            pred = np.zeros_like(line)
+        elif ftype == 1:
+            pred = left
+        elif ftype == 2:
+            pred = prev
+        elif ftype == 3:
+            pred = (left + prev) >> 1
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = abs(p - left), abs(p - prev), abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, prev, upleft))
+        rows.append(bytes([ftype]) + ((line - pred) % 256).astype(
+            np.uint8).tobytes())
+        prev = line
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    path = str(tmp_path / "f.png")
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(b"".join(rows))))
+        f.write(chunk(b"IEND", b""))
+    got = t_image._png_read(path)
+    np.testing.assert_array_equal(got, img)
+    np.testing.assert_array_equal(got, j_image._png_read(path))
+    np.testing.assert_array_equal(got[..., ::-1], cv2.imread(path))
+
+
+def test_checkpoint_copy_reads_and_writes_reference_archives(tmp_path):
+    tree = {"poses": np.arange(12.0).reshape(3, 4).astype(np.float32),
+            "rendered": np.array([True, False, True]),
+            "next_start": np.int64(6)}
+    for save, load in ((t_ckpt.save_checkpoint, j_ckpt.load_checkpoint),
+                       (j_ckpt.save_checkpoint, t_ckpt.load_checkpoint)):
+        base = str(tmp_path / save.__module__.replace(".", "_"))
+        save(base, tree, backend="npz")
+        for backend in ("npz", "auto"):
+            got = load(base, backend=backend)
+            assert got.keys() == tree.keys()
+            for k in tree:
+                np.testing.assert_array_equal(got[k], tree[k])
+    assert t_ckpt.load_checkpoint(str(tmp_path / "none")) is None
+    for call in (lambda: t_ckpt.save_checkpoint(str(tmp_path / "o"), tree,
+                                                backend="orbax"),
+                 lambda: t_ckpt.load_checkpoint(str(tmp_path / "o"),
+                                                backend="orbax")):
+        with pytest.raises(ValueError, match="JAX library"):
+            call()
+
+
+def test_metrics_logger_copy_matches_reference(tmp_path, monkeypatch):
+    monkeypatch.setattr(t_obs.time, "time", lambda: 1.5)
+    monkeypatch.setattr(j_obs.time, "time", lambda: 1.5)
+    for mod in (t_obs, j_obs):
+        m = mod.MetricsLogger(jsonl_path=str(tmp_path / mod.__name__ / "m.jsonl"))
+        m.log("window", start=0, end=4, ms=1.25, mean_px=0.5)
+        m.log("stage1", cost=3.0)
+        m.close()
+    assert ((tmp_path / t_obs.__name__ / "m.jsonl").read_text()
+            == (tmp_path / j_obs.__name__ / "m.jsonl").read_text())
+
+
+def test_profile_trace_writes_chrome_traces(tmp_path):
+    d = str(tmp_path / "profile")
+    with t_obs.profile_trace(None):
+        pass
+    for _ in range(2):
+        with t_obs.profile_trace(d):
+            torch.ones(4) @ torch.ones(4)
+    names = sorted(os.listdir(d))
+    assert names == ["trace_0.json", "trace_1.json"]
+    events = json.load(open(os.path.join(d, names[0])))["traceEvents"]
+    assert any("aten::" in e.get("name", "") for e in events)
+
+
+def test_init_estimators_copy_match_reference(small_model_dict):
+    """``rest_joints_cam`` through the port's FK, and the numpy estimators
+    behind --data-init / --orient-init, on the video1 keypoints at
+    720 x 1280, against the reference."""
+    model = SMPLModel.from_dict(small_model_dict, device="cpu",
+                                dtype=torch.float64)
+    spec = make_skeleton_spec(model, init_root_rotation(), with_shape=True)
+    jm = JModel.from_dict(small_model_dict, dtype=jnp.float64)
+    jspec = jen.make_skeleton_spec(jm, init_root_rotation(), with_shape=True)
+    rest = t_init.rest_joints_cam(spec)
+    np.testing.assert_allclose(rest, j_init.rest_joints_cam(jspec),
+                               rtol=0, atol=1e-12)
+    kp, _ = t_io.load_keypoint_dir(VIDEO1_KPS, 720, 1280, 1.0)
+    cam = default_intrinsics(720, 1280, device="cpu", dtype=torch.float64)
+    jcam = j_intrinsics(720, 1280, dtype=jnp.float64)
+    for orient in (False, True):
+        got = t_init.estimate_frame_init_batch(kp, rest, cam, orient=orient)
+        want = j_init.estimate_frame_init_batch(kp, rest, jcam, orient=orient)
+        np.testing.assert_array_equal(got, want)
+        for f in (0, 4, 20):
+            np.testing.assert_array_equal(
+                t_init.estimate_frame_init(kp[f], rest, cam, orient=orient),
+                j_init.estimate_frame_init(kp[f], rest, jcam, orient=orient))
+    rng = np.random.default_rng(5)
+    axes = rng.normal(size=(9, 3))
+    angles = np.array([0.0, 1e-9, 0.1, 0.5, 1.0, 2.0, 3.0, 3.14, np.pi])
+    aa = axes / np.linalg.norm(axes, axis=1, keepdims=True) * angles[:, None]
+    rot = t_init.rotation_from_aa_batch(aa)
+    np.testing.assert_array_equal(rot, j_init.rotation_from_aa_batch(aa))
+    np.testing.assert_array_equal(t_init.aa_from_rotation_batch(rot),
+                                  j_init.aa_from_rotation_batch(rot))
+    for a, r in zip(aa, rot):
+        np.testing.assert_array_equal(t_init.rotation_from_aa(a),
+                                      j_init.rotation_from_aa(a))
+        np.testing.assert_array_equal(t_init.aa_from_rotation(r),
+                                      j_init.aa_from_rotation(r))
+
+
+def test_common_helpers_match_reference(tmp_path):
+    for s in ("1", "-2.5e3", "nan", "x", "--mesh", ""):
+        assert t_common.is_number(s) == j_common.is_number(s)
+    rows = [(0, 1.25, 3.0), (3, 0.5, 2.75)]
+    for mod in (t_common, j_common):
+        d = tmp_path / mod.__name__
+        d.mkdir()
+        mod.append_log(str(d), rows[:1])
+        mod.append_log(str(d), rows[1:])
+        mod.save_params(str(d), "p.npz", np.ones((2, 76)), np.zeros(10),
+                        extra={"r0_fit": np.eye(3)[None]})
+    a, b = tmp_path / t_common.__name__, tmp_path / j_common.__name__
+    assert (a / "log.csv").read_text() == (b / "log.csv").read_text()
+    pa, pb = np.load(a / "p.npz"), np.load(b / "p.npz")
+    assert sorted(pa.files) == sorted(pb.files)
+    for k in pa.files:
+        np.testing.assert_array_equal(pa[k], pb[k])
+    for aa in (np.zeros(3), np.array([0.3, -0.2, 1.1]), np.array([0, 0, 1e-15])):
+        np.testing.assert_array_equal(t_common.np_rodrigues(aa),
+                                      j_common.np_rodrigues(aa))
+    assert t_common.IMAGE_EXTS == j_common.IMAGE_EXTS
+
+
+def test_load_dataset_matches_reference(dataset):
+    got = t_common.load_dataset(*dataset, 1.0, device="cpu",
+                                dtype=torch.float64)
+    want = j_common.load_dataset(*dataset, midpoint_default_vis=1.0,
+                                 dtype=jnp.float64)
+    for k in ("images", "json_paths", "width", "height"):
+        assert got[k] == want[k]
+    np.testing.assert_array_equal(got["kp_batch"], want["kp_batch"])
+    assert [float(c) for c in got["cam"]] == [float(c) for c in want["cam"]]
+    assert got["model"].v_template.dtype == torch.float64
+    np.testing.assert_array_equal(got["model"].v_template.numpy(),
+                                  np.asarray(want["model"].v_template))
+    assert got["gmm"] is None and want["gmm"] is None
+    with pytest.raises(ValueError, match="No images"):
+        t_common.load_dataset(dataset[0], dataset[1], dataset[1], 1.0,
+                              device="cpu", dtype=torch.float32)
+
+
+# ------------------------------------------------------------ the CLI
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["150", "60", "10", "20", "5", "5.0", "25.0", "3.0", "--s2-iters", "60",
+     "--batched-windows", "--data-init", "--init-from-anchors"],
+    ["7", "--resume", "8.5", "--linear", "pcg_kernel", "--cg-rtol", "0.01",
+     "--window-chunk", "3", "--fused-stages", "--orient-init",
+     "--no-orient-init", "--jax-render", "--profile", "--metrics-jsonl",
+     "m.jsonl", "--pose-prior", "p.txt", "--mesh", "2"],
+    ["--multi-start", "--ckpt-backend", "orbax", "--linear", "cr",
+     "1", "2", "3", "4", "5", "6", "7", "8", "9"],
+    ["--linear", "nope"],
+    ["--ckpt-backend", "zip"],
+])
+def test_parse_args_matches_reference(argv):
+    full = ["m.npz", "kps", "imgs", "out"] + argv
+    assert t_multi.parse_args(full) == j_multi.parse_args(full)
+    assert t_multi.parse_args(full[:3]) is None
+
+
+@pytest.mark.parametrize("extra", [
+    [],
+    ["--batched-windows"],
+    ["--batched-windows", "--init-from-anchors", "--fused-stages"],
+], ids=["sequential", "batched", "fused"])
+def test_cli_matches_reference(dataset, tmp_path, extra):
+    j_out, t_out = _run_both(dataset, tmp_path, extra)
+    (jf, je), (tf, te) = _log(j_out), _log(t_out)
+    np.testing.assert_array_equal(tf, jf)
+    # anchors (skip 3: frames 0, 3, 6), then the windows' frames
+    assert list(tf[:3]) == [0, 3, 6] and set(tf[3:]) == set(range(N_FRAMES))
+    np.testing.assert_allclose(te, je, rtol=0, atol=LOG_ATOL_PX)
+    assert sorted(os.listdir(t_out)) == sorted(os.listdir(j_out))
+    for i in range(N_FRAMES):
+        assert os.path.isfile(os.path.join(t_out, f"frame_{i}_multi.png"))
+    pj = np.load(os.path.join(j_out, "params_multi.npz"))
+    pt = np.load(os.path.join(t_out, "params_multi.npz"))
+    assert sorted(pt.files) == sorted(pj.files)
+    assert pt["params"].shape == (N_FRAMES, 76) and pt["shape"].shape == (10,)
+    np.testing.assert_allclose(pt["shape"], pj["shape"], atol=SHAPE_ATOL)
+    np.testing.assert_allclose(pt["r0_fit"], pj["r0_fit"], atol=1e-2)
+    lj = open(os.path.join(j_out, "loss_curve.txt")).read().splitlines()
+    lt = open(os.path.join(t_out, "loss_curve.txt")).read().splitlines()
+    assert lt[0] == "iteration,loss" and len(lt) == len(lj) == 31
+    np.testing.assert_allclose([float(r.split(",")[1]) for r in lt[1:]],
+                               [float(r.split(",")[1]) for r in lj[1:]],
+                               rtol=1e-3)
+
+
+def test_cli_window_chunk_and_data_init(dataset, tmp_path, capsys):
+    """--window-chunk 2 (three windows: a ragged last chunk) with
+    --data-init --orient-init against the reference. Short runs: the
+    warning on the sequential path; with the CG tolerance exit the chunks
+    give the unchunked batch's rows, as the port's PCG ends each window's
+    CG on its own residual (so the JAX CLI's warning about chunk width is
+    not printed)."""
+    extra = ["--batched-windows", "--window-chunk", "2", "--data-init",
+             "--orient-init"]
+    j_out, t_out = _run_both(dataset, tmp_path, extra)
+    np.testing.assert_allclose(_log(t_out)[1], _log(j_out)[1], rtol=0,
+                               atol=LOG_ATOL_PX)
+    short = list(dataset[:3]) + ["2", "2", "3", "4", "1", "2.0", "25.0",
+                                  "1.0", "--s2-iters", "4"]
+    capsys.readouterr()
+    assert t_multi.main(short[:3] + [str(tmp_path / "seq")] + short[3:]
+                        + ["--window-chunk", "2"], device="cpu") == 0
+    assert "--window-chunk only applies" in capsys.readouterr().err
+    rows = []
+    for k, chunk in enumerate((["--window-chunk", "2"], [])):
+        out = str(tmp_path / f"rtol{k}")
+        assert t_multi.main(short[:3] + [out] + short[3:]
+                            + ["--batched-windows", "--cg-rtol", "0.1",
+                               "--linear", "pcg"] + chunk, device="cpu") == 0
+        rows.append(_log(out))
+        assert "[WARN]" not in capsys.readouterr().err
+    np.testing.assert_array_equal(rows[0][0], rows[1][0])
+    np.testing.assert_allclose(rows[0][1], rows[1][1], rtol=1e-5, atol=1e-5)
+
+
+def test_cli_resume_midway(dataset, tmp_path, capsys, monkeypatch):
+    """An interrupted run: the checkpoint the CLI wrote after its first
+    window (next start 3) is put back, and the run resumed. Stage 1 is not
+    run again; the windows from 3 on are solved from the checkpointed
+    state and give the uninterrupted run's rows; every frame is rendered
+    and the checkpoint ends at the last frame."""
+    saved = {}
+
+    def save(base, tree, backend):
+        saved.setdefault(int(tree["next_start"]),
+                         {k: np.array(v, copy=True) for k, v in tree.items()})
+        t_ckpt.save_checkpoint(base, tree, backend=backend)
+    monkeypatch.setattr(t_multi, "save_checkpoint", save)
+    out = str(tmp_path / "o")
+    argv = list(dataset) + [out] + NUMERIC
+    assert t_multi.main(argv, device="cpu") == 0
+    frames, errs = _log(out)
+    assert 3 in saved and N_FRAMES in saved
+    np.savez(os.path.join(out, "checkpoint_multi.npz"), **saved[3])
+    for i in range(3, N_FRAMES):
+        os.remove(os.path.join(out, f"frame_{i}_multi.png"))
+    capsys.readouterr()
+    assert t_multi.main(argv + ["--resume"], device="cpu") == 0
+    said = capsys.readouterr().out
+    assert "resuming from" in said and "stage-1" not in said
+    frames2, errs2 = _log(out)
+    # 3 anchor rows and window [0, 4)'s 4, then the rows of the windows
+    # at 3 and 6, which the resumed run logs again
+    again = slice(3 + 4, None)
+    assert list(frames[again]) == [3, 4, 5, 6, 6]
+    np.testing.assert_array_equal(frames2[len(frames):], frames[again])
+    np.testing.assert_array_equal(errs2[len(frames):], errs[again])
+    for i in range(N_FRAMES):
+        assert os.path.isfile(os.path.join(out, f"frame_{i}_multi.png"))
+    ck = np.load(os.path.join(out, "checkpoint_multi.npz"))
+    assert int(ck["next_start"]) == N_FRAMES and ck["rendered"].all()
+
+
+def test_cli_metrics_jsonl_and_profile(dataset, tmp_path):
+    out = str(tmp_path / "o")
+    mpath = str(tmp_path / "metrics.jsonl")
+    assert t_multi.main(list(dataset) + [out, "3", "3", "3", "4", "1"]
+                        + ["--metrics-jsonl", mpath, "--profile"],
+                        device="cpu") == 0
+    events = [json.loads(line) for line in open(mpath)]
+    assert [e["event"] for e in events] == ["stage1"] + ["window"] * 3
+    assert all("ms" in e and "mean_px" in e for e in events[1:])
+    assert events[0]["anchors"] == 3
+    # stage 1 and the windows' loop, one trace each
+    assert sorted(os.listdir(os.path.join(out, "profile"))) == [
+        "trace_0.json", "trace_1.json"]
+
+
+def test_cli_fused_stages_falls_back(dataset, tmp_path, capsys):
+    out = str(tmp_path / "o")
+    assert t_multi.main(list(dataset) + [out, "3", "3", "3", "4", "1",
+                                         "--fused-stages"],
+                        device="cpu") == 0
+    assert "--fused-stages needs" in capsys.readouterr().err
+    assert os.path.isfile(os.path.join(out, "params_multi.npz"))
+
+
+def test_cli_count_mismatch_and_usage(dataset, tmp_path, capsys):
+    model_path, kp_dir, img_dir = dataset
+    img2 = tmp_path / "imgs"
+    shutil.copytree(img_dir, img2)
+    os.remove(img2 / "frame_0006.png")
+    assert t_multi.main([model_path, kp_dir, str(img2), str(tmp_path / "o")],
+                        device="cpu") == 1
+    assert "image / json count mismatch" in capsys.readouterr().err
+    assert t_multi.main(["a", "b"], device="cpu") == 0
+    assert capsys.readouterr().out == t_multi.USAGE
+    assert t_multi.main(list(dataset) + [str(tmp_path / "o2"), "4", "4", "3",
+                                         "4", "4"], device="cpu") == 1
+    assert "window must exceed overlap" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--mesh", "2"], "M14"),
+    (["--multi-start"], "M11"),
+    (["--linear", "pcg_block"], "M13"),
+    (["--linear", "cr"], "Do not port"),
+    (["--ckpt-backend", "orbax"], "Do not port"),
+])
+def test_cli_refuses_flags_not_ported(tmp_path, capsys, flags, item):
+    out = str(tmp_path / "o")
+    assert t_multi.main(["m.npz", "k", "i", out] + flags, device="cpu") == 1
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err and item in err
+    assert not os.path.exists(out)
+
+
+def test_cli_needs_the_card_by_default(dataset, tmp_path, capsys):
+    """``main`` runs on the card unless asked for the CPU; here (no CUDA
+    device) it says so and fails, and so does ``python -m``."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert t_multi.main(list(dataset) + [str(tmp_path / "o")]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    run = subprocess.run(
+        [sys.executable, "-m", "smpltpu_torch.pipeline.multi"]
+        + list(dataset) + [str(tmp_path / "o2")], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert run.returncode == 1 and "no CUDA device" in run.stderr
+    assert not os.path.exists(tmp_path / "o2")
+
+
+@pytest.mark.skipif(not os.path.isdir(VIDEO1_KPS),
+                    reason="reference fixture not mounted")
+def test_cli_fullres_golden(tmp_path):
+    """The golden's argv (tests/test_fullres_golden.py) through the port's
+    CLI: video1's keypoints, blank 1280 x 720 (H x W) frames, the
+    300-vertex synthetic model; tolerances in the module docstring."""
+    from tests.test_fullres_golden import ARGV_FLAGS, ARGV_NUMERIC
+
+    model_path = str(tmp_path / "model.npz")
+    t_io.save_smpl_npz(model_path, make_synthetic_model(n_verts=300, seed=0))
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    for i in range(0, 380, 10):
+        t_image.imwrite(str(img_dir / f"frame_{i:04d}.png"),
+                        np.zeros((1280, 720, 3), np.uint8))
+    out = str(tmp_path / "out")
+    assert t_multi.main([model_path, VIDEO1_KPS, str(img_dir), out]
+                        + ARGV_NUMERIC + ARGV_FLAGS, device="cpu") == 0
+    frames, errs = _log(out)
+    g = np.load(GOLDEN)
+    np.testing.assert_array_equal(frames, g["frames"])
+    np.testing.assert_allclose(errs, g["errs"], rtol=GOLDEN_RTOL,
+                               atol=GOLDEN_ATOL)
+    assert errs.mean() < GOLDEN_MEAN_MAX
+    params = np.load(os.path.join(out, "params_multi.npz"))["params"]
+    assert params.shape == g["params"].shape and np.isfinite(params).all()

@@ -36,8 +36,8 @@ from smpltpu_torch.energy.params import init_frame_params
 from smpltpu_torch.pipeline import common as pipeline_common
 from smpltpu_torch.pipeline.common import (
     batched_frame_eval,
+    overlay_image,
     render_frames,
-    render_overlay_image,
 )
 from smpltpu_torch.solve import (
     MultiFrameConfig,
@@ -175,8 +175,10 @@ def test_fused_two_stage_matches_jax(small_model_dict, jax_side):
 
 
 def test_linear_options(small_model_dict):
-    """pcg_kernel takes the same plain loop on the CPU; the exact solvers
-    and the block preconditioner are not ported yet and say so."""
+    """pcg_kernel takes the same plain loop on the CPU; cyclic reduction
+    and the block preconditioner are not ported and say so (the exact
+    "tridiag" solve is held against the reference in
+    tests/test_torch_tridiag.py)."""
     rig = make_rig(small_model_dict, 4, seed=10)
     outs = {}
     for lin in ("pcg", "pcg_kernel"):
@@ -189,7 +191,7 @@ def test_linear_options(small_model_dict):
                         torch.as_tensor(rig["kp"]), torch.as_tensor(rig["r0"]))
     for a, b in zip(outs["pcg"], outs["pcg_kernel"]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    for lin in ("tridiag", "cr", "pcg_block"):
+    for lin in ("cr", "pcg_block"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_multi_fitter(rig["spec"], rig["cam"],
                                MultiFrameConfig(**dict(CFG, linear=lin)), 10,
@@ -216,14 +218,14 @@ def test_batched_frame_eval_and_render_match_jax(small_model_dict, jax_side):
     np.testing.assert_allclose(err, jerr, rtol=0, atol=1e-10)
     np.testing.assert_allclose(verts, jverts, rtol=0, atol=1e-10)
     img = np.zeros((H_IMG, W_IMG, 3), np.uint8)
-    out = render_overlay_image(rig["model"], verts[0], img, rig["cam"])
+    out = overlay_image(rig["model"], verts[0], img, rig["cam"])
     assert out is img and int((img > 0).any(axis=-1).sum()) > 0
     # the on-device path (K3's plain version on the CPU) over a frame that
     # already holds the host render, pixel for pixel against the reference
     want = render_overlay_tiled(jverts[0], jm.faces, img,
                                 *(float(c) for c in jcam))
-    out = render_overlay_image(rig["model"], verts[0], img, rig["cam"],
-                               use_jax=True)
+    out = overlay_image(rig["model"], verts[0], img, rig["cam"],
+                        use_jax=True)
     assert out is img
     np.testing.assert_array_equal(img, want)
 

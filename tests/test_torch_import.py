@@ -36,10 +36,20 @@ SLICE_MODULES = [
     "smpltpu_torch.solve.lm",
     "smpltpu_torch.solve.multi_frame",
     "smpltpu_torch.solve.two_stage",
+    "smpltpu_torch.solve.tridiag",
+    "smpltpu_torch.solve.init",
+    "smpltpu_torch.io",
+    "smpltpu_torch.io.smpl_npz",
+    "smpltpu_torch.io.gmm",
+    "smpltpu_torch.io.keypoints",
+    "smpltpu_torch.models.registry",
     "smpltpu_torch.utils",
     "smpltpu_torch.utils.camera",
     "smpltpu_torch.utils.writeback",
     "smpltpu_torch.utils.metrics",
+    "smpltpu_torch.utils.image",
+    "smpltpu_torch.utils.ckpt",
+    "smpltpu_torch.utils.obs",
     "smpltpu_torch.ops",
     "smpltpu_torch.ops.cg",
     "smpltpu_torch.ops.lbs",
@@ -48,6 +58,7 @@ SLICE_MODULES = [
     "smpltpu_torch.render.zbuffer",
     "smpltpu_torch.pipeline",
     "smpltpu_torch.pipeline.common",
+    "smpltpu_torch.pipeline.multi",
 ]
 # every source file of the port, and the card check
 PORT_FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(

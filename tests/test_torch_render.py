@@ -397,6 +397,32 @@ def test_painter_copy_matches_numpy_fill(small_model_dict, monkeypatch):
     assert int((got > 0).any(axis=-1).sum()) > 100
 
 
+@pytest.mark.parametrize("chunk_px", [64, 4096, 1 << 20])
+def test_painter_numpy_fill_matches_reference_loop(monkeypatch, chunk_px):
+    """The port's numpy fill, vectorized over triangles in chunks of
+    ``chunk_px`` candidate pixels, sets every pixel as the reference's
+    loop over triangles does: random triangles from one pixel to larger
+    than the frame, partly off screen, degenerate, overlapping in draw
+    order."""
+    monkeypatch.setattr(painter, "FILL_CHUNK_PX", chunk_px)
+    rng = np.random.default_rng(chunk_px)
+    for trial in range(12):
+        h, w = (int(v) for v in rng.integers(5, 200, 2))
+        n = int(rng.integers(1, 300))
+        c = rng.uniform(-40, max(h, w) + 40, size=(n, 1, 2))
+        tris = c + rng.normal(size=(n, 3, 2)) * rng.choice(
+            [1.0, 5.0, 40.0, 300.0], size=(n, 1, 1))
+        if trial % 3 == 0:
+            tris[0] = [[-1000, -1000], [3000, -1000], [-1000, 3000]]
+            tris[-1] = [[10.5, 10.5], [10.5, 10.5], [10.5, 10.5]]
+        cols = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+        got = np.zeros((h, w, 3), np.uint8)
+        want = got.copy()
+        painter._fill_triangles_numpy(got, tris, cols)
+        j_painter._fill_triangles_numpy(want, tris, cols)
+        np.testing.assert_array_equal(got, want)
+
+
 def test_painter_copy_matches_cv2_fill(small_model_dict):
     """The same on the cv2 fill path, where cv2 is installed."""
     pytest.importorskip("cv2")
