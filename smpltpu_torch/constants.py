@@ -27,6 +27,10 @@ USE_SMPL = np.array(
 # Number of keypoint slots per frame in the dense layout.
 N_KP_SLOTS = len(USE_SMPL)
 
+# Joints held at zero rotation by the pose-only single-frame fit: MediaPipe
+# never observes them (feet tips and hands).
+FIXED_JOINTS_POSE_ONLY = (10, 11, 22, 23)
+
 # Huber scale of the keypoint reprojection residuals.
 HUBER_DELTA = 3.0
 

@@ -1,5 +1,11 @@
-"""Costs of the multi-frame fit (port of ``smpltpu/energy``)."""
+"""Costs of the fits (port of ``smpltpu/energy``)."""
 
+from smpltpu_torch.energy.priors import (  # noqa: F401
+    GMMPrior,
+    gmm_pose_prior_residual,
+    l2_pose_prior_residual,
+    shape_prior_residual,
+)
 from smpltpu_torch.energy.reproj import (  # noqa: F401
     Camera,
     SkeletonSpec,
@@ -8,3 +14,5 @@ from smpltpu_torch.energy.reproj import (  # noqa: F401
     project,
     skeleton_joints_cam,
 )
+from smpltpu_torch.energy.robust import huber_block_weights  # noqa: F401
+from smpltpu_torch.energy.temporal import temporal_residuals  # noqa: F401

@@ -28,6 +28,7 @@ from smpltpu_torch.energy.reproj import (
     _guard_z,
     _shaped_offsets,
     gather_joints,
+    parent_tables,
 )
 from smpltpu_torch.models.smpl import _skew, rodrigues
 
@@ -60,6 +61,19 @@ def _strict_ancestor_mask(parents: np.ndarray) -> np.ndarray:
     return m[:, 1:]
 
 
+_ANCESTOR_MASKS: dict = {}
+
+
+def _ancestor_mask(parents: np.ndarray, device, dtype) -> torch.Tensor:
+    """:func:`_strict_ancestor_mask` on ``device`` in ``dtype``, made once
+    (a host-to-device copy in every LM trip would wait for the device)."""
+    key = (np.asarray(parents).tobytes(), str(torch.device(device)), dtype)
+    if key not in _ANCESTOR_MASKS:
+        _ANCESTOR_MASKS[key] = torch.as_tensor(
+            _strict_ancestor_mask(parents), dtype=dtype, device=device)
+    return _ANCESTOR_MASKS[key]
+
+
 def keypoint_residuals_and_jacobian(
     params_vec: torch.Tensor,
     shape: torch.Tensor,
@@ -87,8 +101,7 @@ def keypoint_residuals_and_jacobian(
     jsr = spec.joint_shape_reg
     jsr_off = None
     if jsr is not None:
-        has_par = torch.as_tensor(spec.parents >= 0, device=jsr.device)
-        pj = np.where(spec.parents < 0, 0, spec.parents)
+        pj, has_par = parent_tables(spec.parents, jsr.device)
         jsr_off = jsr - torch.where(has_par[:, None, None], jsr[pj],
                                     torch.zeros_like(jsr))
 
@@ -118,8 +131,7 @@ def keypoint_residuals_and_jacobian(
     v = xc[..., :, None, :] - xc[..., None, 1:, :]                # (..., nJ,nJ-1,3)
     dxdth = torch.linalg.cross(w_cols[..., None, :, :, :],
                                v[..., :, :, None, :])             # (...,nJ,nJ-1,3m,3)
-    anc = torch.as_tensor(_strict_ancestor_mask(spec.parents),
-                          dtype=rot.dtype, device=rot.device)
+    anc = _ancestor_mask(spec.parents, rot.device, rot.dtype)
     dxdth = dxdth * anc[:, :, None, None]
 
     # world transform y = s R(a) R0 x + t and its param columns

@@ -27,6 +27,9 @@ def frame_param_layout(n_joints: int = SMPL_NUM_JOINTS) -> dict:
     }
 
 
+N_FRAME_PARAMS = frame_param_layout()["total"]  # 76
+
+
 class FrameParams(NamedTuple):
     """Unpacked view of (a batch of) frame parameters."""
 

@@ -59,6 +59,24 @@ def make_skeleton_spec(model: SMPLModel, r0, with_shape: bool) -> SkeletonSpec:
     )
 
 
+_PARENT_TABLES: dict = {}
+
+
+def parent_tables(parents: np.ndarray, device):
+    """(parent index with the root's -1 as 0 (nJ,) int64, has-a-parent
+    (nJ,) bool) on ``device``, made once per parent table and device: a
+    table built from host data on every call would be a host-to-device
+    copy, which waits for the device, inside every LM trip."""
+    key = (np.asarray(parents).tobytes(), str(torch.device(device)))
+    hit = _PARENT_TABLES.get(key)
+    if hit is None:
+        hit = (torch.as_tensor(np.where(parents < 0, 0, parents),
+                               dtype=torch.int64, device=device),
+               torch.as_tensor(parents >= 0, device=device))
+        _PARENT_TABLES[key] = hit
+    return hit
+
+
 def _shaped_offsets(spec: SkeletonSpec, shape: torch.Tensor):
     """Bone offsets with the shape deltas folded in, and joint 0's own
     delta (the root-quirk output position). Returns (offsets (..., nJ, 3),
@@ -67,8 +85,7 @@ def _shaped_offsets(spec: SkeletonSpec, shape: torch.Tensor):
     if spec.joint_shape_reg is None:
         return offsets, torch.zeros_like(offsets[0])
     delta = torch.einsum("jxs,...s->...jx", spec.joint_shape_reg, shape)
-    pj = np.where(spec.parents < 0, 0, spec.parents)
-    has_par = torch.as_tensor(spec.parents >= 0, device=delta.device)
+    pj, has_par = parent_tables(spec.parents, delta.device)
     delta_parent = torch.where(has_par[:, None], delta[..., pj, :],
                                torch.zeros_like(delta))
     return offsets + (delta - delta_parent), delta[..., 0, :]

@@ -15,3 +15,9 @@ def temporal_mask(n_joints: int, *, device, dtype) -> torch.Tensor:
                    device=device)
     m[0] = 0.0
     return m
+
+
+def temporal_residuals(params: torch.Tensor, lam, n_joints: int) -> torch.Tensor:
+    """params (F, P) -> ((F-1) * P,) masked differences lam*(p_f - p_{f+1})."""
+    mask = temporal_mask(n_joints, device=params.device, dtype=params.dtype)
+    return (lam * ((params[:-1] - params[1:]) * mask)).reshape(-1)

@@ -54,24 +54,37 @@ def arrow_matvec(d_blocks, off_scale, tmask, b_pw, c_reg, v_p, v_w):
 
 
 def arrow_pcg_torch(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
-                    iters: int, rtol: float = 0.0):
-    """Plain batched Jacobi-PCG. d_blocks (W, F, P, P), off_scale (W, F-1),
+                    iters: int, rtol: float = 0.0, prec=None):
+    """Plain batched PCG. d_blocks (W, F, P, P), off_scale (W, F-1),
     tmask (P,), b_pw (W, F, P, nS), c_reg (W, nS, nS), g_p (W, F, P),
     g_w (W, nS) -> (dp (W, F, P), dw (W, nS)).
 
+    The preconditioner is Jacobi (the diagonals of D and C), or with
+    ``prec = (pinv_pp (W, F, P, P), pinv_w (W, nS, nS))`` those blocks
+    applied as matrices (``linear="pcg_block"`` of the multi-frame fit).
     ``rtol > 0`` stops a window once ||r||^2 <= rtol^2 ||r0||^2 (cap
     ``iters``); the others go on, as under ``jax.vmap`` of the reference
     loop, where a finished window keeps its iterate."""
     def matvec(v_p, v_w):
         return arrow_matvec(d_blocks, off_scale, tmask, b_pw, c_reg, v_p, v_w)
 
-    dinv = 1.0 / torch.clamp(torch.diagonal(d_blocks, dim1=-2, dim2=-1),
-                             min=1e-20)
-    cinv = 1.0 / torch.clamp(torch.diagonal(c_reg, dim1=-2, dim2=-1),
-                             min=1e-20)
+    if prec is None:
+        dinv = 1.0 / torch.clamp(torch.diagonal(d_blocks, dim1=-2, dim2=-1),
+                                 min=1e-20)
+        cinv = 1.0 / torch.clamp(torch.diagonal(c_reg, dim1=-2, dim2=-1),
+                                 min=1e-20)
+
+        def precond(r_p, r_w):
+            return dinv * r_p, cinv * r_w
+    else:
+        pinv_pp, pinv_w = prec
+
+        def precond(r_p, r_w):
+            return ((pinv_pp @ r_p[..., None])[..., 0],
+                    (pinv_w @ r_w[..., None])[..., 0])
     x_p, x_w = torch.zeros_like(g_p), torch.zeros_like(g_w)
     r_p, r_w = -g_p, -g_w
-    d_p, d_w = dinv * r_p, cinv * r_w
+    d_p, d_w = precond(r_p, r_w)
     rho = window_dot(r_p, d_p) + window_dot(r_w, d_w)
     if rtol > 0.0:
         rr = window_dot(r_p, r_p) + window_dot(r_w, r_w)
@@ -83,7 +96,7 @@ def arrow_pcg_torch(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
         a_p, a_w = alpha[:, None, None], alpha[:, None]
         new_x_p, new_x_w = x_p + a_p * d_p, x_w + a_w * d_w
         new_r_p, new_r_w = r_p - a_p * q_p, r_w - a_w * q_w
-        z_p, z_w = dinv * new_r_p, cinv * new_r_w
+        z_p, z_w = precond(new_r_p, new_r_w)
         rho_n = window_dot(new_r_p, z_p) + window_dot(new_r_w, z_w)
         beta = rho_n / torch.clamp(rho, min=1e-30)
         new_d_p = z_p + beta[:, None, None] * d_p

@@ -38,8 +38,9 @@ interpolation and stage 2 in one call of solve/two_stage.py; it needs
 --batched-windows --init-from-anchors and no --window-chunk, else a
 warning and the sequential stages), --window-chunk N, --resume,
 --metrics-jsonl, --profile (torch.profiler traces under out_dir/profile),
---jax-render, --pose-prior, --linear tridiag|pcg|pcg_kernel, --cg-rtol,
---data-init, --orient-init, --s2-iters.
+--jax-render, --pose-prior, --linear tridiag|pcg|pcg_block|pcg_kernel,
+--cg-rtol, --multi-start (every frame seeded by its best-of-starts
+single-frame fit), --data-init, --orient-init, --s2-iters.
 
 Differences from the JAX CLI:
   * the fused path is timed after a warm-up call, as the sequential
@@ -51,8 +52,7 @@ Differences from the JAX CLI:
     so the fit is not run twice;
   * flags whose code is not ported exit with a message naming their
     ROADMAP.md item: --mesh N > 1 (M14; --mesh 0 runs on one device and
-    says so), --multi-start (M11), --linear pcg_block (M13), --linear cr
-    and --ckpt-backend orbax (not ported);
+    says so), --linear cr and --ckpt-backend orbax (not ported);
   * ``--jax-render`` has no fallback to another rasterizer;
   * ``--window-chunk`` with ``--cg-rtol`` gives each window the result of
     the unchunked batch (the port's PCG, plain and K1, ends each window's
@@ -86,7 +86,13 @@ from smpltpu_torch.solve import (
     build_fused_two_stage,
     build_multi_fitter,
 )
-from smpltpu_torch.solve.init import estimate_frame_init_batch, rest_joints_cam
+from smpltpu_torch.solve.init import (
+    best_of_starts,
+    estimate_frame_init_batch,
+    make_start_set,
+    rest_joints_cam,
+)
+from smpltpu_torch.solve.single_frame import build_fitter, make_single_frame_problem
 from smpltpu_torch.utils.ckpt import ORBAX_REFUSED, load_checkpoint, save_checkpoint
 from smpltpu_torch.utils.obs import MetricsLogger, profile_trace
 
@@ -193,15 +199,9 @@ def refused(opts) -> str | None:
         return (f"--mesh {opts['mesh']}: the multi-device path is not "
                 "ported yet (ROADMAP.md, M14); --mesh 0 or 1 runs on one "
                 "device")
-    if opts["multi_start"]:
-        return ("--multi-start: the single-frame solver it seeds with is "
-                "not ported yet (ROADMAP.md, M11)")
-    if opts["linear"] == "pcg_block":
-        return ("--linear pcg_block is not ported yet (ROADMAP.md, M13); "
-                "use tridiag, pcg or pcg_kernel")
     if opts["linear"] == "cr":
         return ("--linear cr is not ported (ROADMAP.md, 'Do not port'); "
-                "use tridiag, pcg or pcg_kernel")
+                "use tridiag, pcg, pcg_block or pcg_kernel")
     if opts["ckpt_backend"] == "orbax":
         return f"--ckpt-backend orbax: {ORBAX_REFUSED}"
     return None
@@ -288,7 +288,30 @@ def main(argv=None, *, device="cuda") -> int:
     default_pose = init_frame_params(
         device="cpu", dtype=torch.float32).numpy()
     poses = np.tile(default_pose, (n_frames, 1))
-    if opts["data_init"]:
+    if opts["multi_start"]:
+        # framework extension: seed every frame with its best-of-starts
+        # single-frame fit (one batched multi-start solve, solve/init.py::
+        # make_start_set) before the two-stage chain. freeze_scale=True:
+        # the chain freezes the per-frame scale and the log.csv evaluation
+        # discards it, and projection is invariant to a uniform scaling
+        # about the camera centre, so a (1, t / s) optimum exists for any
+        # (s, t) one
+        prob_ms = make_single_frame_problem(
+            model, init_root_rotation(), cam,
+            beta_pose=opts["beta_pose"], beta_shape=opts["beta_shape"],
+            freeze_scale=True)
+        starts = make_start_set(kp, prob_ms.spec, cam,
+                                orient=opts["orient_init"])
+        s_dim = starts.shape[1]
+        fit_ms = build_fitter(prob_ms, max_iters=100, device=dev, dtype=dtype,
+                              chunk=0 if n_frames * s_dim <= 640 else 128)
+        st_ms = fit_ms(t(starts.reshape(n_frames * s_dim, -1)),
+                       t(np.repeat(kp, s_dim, axis=0)))
+        xb, _, _ = best_of_starts(st_ms, n_frames, s_dim)
+        poses = np.asarray(xb, np.float32).copy()
+        print(f"[INFO] multi-start seeding: {n_frames} frames x {s_dim} "
+              "starts, best-of-starts params seed the two-stage chain")
+    elif opts["data_init"]:
         # framework extension (the reference inits every frame blindly at
         # s=1, t=(0,0,3)): closed-form per-frame depth and translation from
         # the detections (solve/init.py), seeding both the anchors and the

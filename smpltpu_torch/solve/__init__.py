@@ -1,18 +1,26 @@
-"""Solvers (port of ``smpltpu/solve``): the multi-frame LM, its exact
+"""Solvers (port of ``smpltpu/solve``): the batched LM with its exact trust
+region and the single-frame fit on it, the multi-frame LM, its exact
 block-tridiagonal solve, the chunked window fit, the fused two-stage
-pipeline and the data-driven frame initialization."""
+pipeline and the data-driven frame initialization with its multi-start
+fits."""
 
 from smpltpu_torch.solve.init import (  # noqa: F401
+    AdaptiveResult,
     aa_from_rotation,
     aa_from_rotation_batch,
+    best_of_starts,
+    build_px_eval,
     estimate_frame_init,
     estimate_frame_init_batch,
     estimate_root_orient,
     estimate_root_orient_batch,
+    fit_adaptive,
+    make_start_set,
     rest_joints_cam,
     rotation_from_aa,
     rotation_from_aa_batch,
 )
+from smpltpu_torch.solve.lm import LMConfig, LMResult, LMState, lm_solve  # noqa: F401
 from smpltpu_torch.solve.multi_frame import (  # noqa: F401
     MultiFrameConfig,
     MultiFrameResult,
@@ -20,6 +28,12 @@ from smpltpu_torch.solve.multi_frame import (  # noqa: F401
     build_chunked_window_fit,
     build_multi_fitter,
     fit_multi_frame,
+)
+from smpltpu_torch.solve.single_frame import (  # noqa: F401
+    SingleFrameProblem,
+    build_fitter,
+    fit_frames,
+    make_single_frame_problem,
 )
 from smpltpu_torch.solve.tridiag import block_tridiag_solve  # noqa: F401
 from smpltpu_torch.solve.two_stage import build_fused_two_stage  # noqa: F401

@@ -15,9 +15,15 @@ branch over frames.
 Everything below ``rest_joints_cam`` is a copy of the reference's numpy
 code (the port may not import it), pinned against the original by
 ``tests/test_torch_cli.py``; only the source of the default frame
-parameters differs (:func:`_init_params`). ``make_start_set``,
-``build_px_eval``, ``fit_adaptive``, ``_propagate_scan`` and
-``best_of_starts`` come with the single-frame path (ROADMAP.md, M11).
+parameters differs (:func:`_init_params`).
+
+The multi-start half fits through the single-frame solver:
+``make_start_set`` (the data-driven init under root-yaw hypotheses, the
+reference's blind init and optional pose seeds, one row per start),
+``best_of_starts``, ``build_px_eval`` and ``fit_adaptive`` (fit every
+frame once, multi-start only the frames left above a pixel threshold).
+``fit_adaptive(propagate=True)`` needs the streaming scan, which is not
+ported yet (ROADMAP.md, M12), and is refused.
 """
 
 from __future__ import annotations
@@ -25,8 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from smpltpu_torch.energy.params import init_frame_params
-from smpltpu_torch.energy.reproj import SkeletonSpec, skeleton_joints_cam
+from smpltpu_torch.energy.params import frame_param_layout, init_frame_params
+from smpltpu_torch.energy.reproj import SkeletonSpec, project, skeleton_joints_cam
 
 
 def _init_params(n_joints: int, depth: float) -> np.ndarray:
@@ -600,3 +606,211 @@ def estimate_frame_init_batch(
         x0[good, 5] = ty[good]
         x0[good, 6] = z[good]
     return x0
+
+
+def make_start_set(
+    kp_batch: np.ndarray,   # (F, K, 4)
+    spec: SkeletonSpec,
+    cam,
+    yaws=(0.0, np.pi / 2, -np.pi / 2, np.pi),
+    include_reference_init: bool = True,
+    n_extra_dims: int = 0,   # append zeros (e.g. the shape block) per start
+    pose_seeds: np.ndarray = None,   # (S_extra, 3*(nJ-1)) joint-AA seeds
+    orient: bool = True,
+) -> np.ndarray:
+    """(F, S, P[+extra]) float64 start set: the data-driven init under each
+    yaw hypothesis [+ the reference's blind init] [+ one start per pose
+    seed, with the data-driven root and the seed's joint angle-axes].
+
+    ``orient=True``: each frame's base start carries the weak-perspective
+    root-orientation estimate, the yaws compose about the camera y axis on
+    top of it, and the yaw = pi slot becomes the Necker flip
+    (diag(1,1,-1) R diag(1,1,-1)); a frame without an estimate keeps the
+    absolute yaw. Pose seeds are how a GMM prior's component means enter:
+    the hard-assignment energy is piecewise and a zero-pose start cannot
+    switch component basins (the reference's docstring says more)."""
+    rest = rest_joints_cam(spec)
+    n_j = len(spec.parents)
+    p_dim = frame_param_layout(n_j)["total"]
+    f_dim = kp_batch.shape[0]
+    necker = np.diag([1.0, 1.0, -1.0])
+    base = estimate_frame_init_batch(np.asarray(kp_batch, np.float64),
+                                     rest, cam, n_joints=n_j,
+                                     orient=orient)
+    have_r = (np.any(base[:, 1:4] != 0.0, axis=1) if orient
+              else np.zeros(f_dim, bool))
+    r_est = rotation_from_aa_batch(base[:, 1:4])
+    rows = []
+    for yaw in yaws:
+        v = base.copy()
+        v[~have_r, 2] = yaw
+        if have_r.any():
+            # tolerant matching: a near-pi yaw still gets the Necker flip,
+            # a near-zero one the plain base start
+            if np.isclose(abs(yaw), np.pi):
+                v[have_r, 1:4] = aa_from_rotation_batch(
+                    necker[None] @ r_est[have_r] @ necker[None])
+            elif not np.isclose(yaw, 0.0):
+                v[have_r, 1:4] = aa_from_rotation_batch(
+                    rotation_from_aa(np.array([0.0, yaw, 0.0]))[None]
+                    @ r_est[have_r])
+        rows.append(v)
+    if include_reference_init:
+        rows.append(np.tile(_init_params(n_j, 3.0), (f_dim, 1)))
+    if pose_seeds is not None:
+        for seed in np.asarray(pose_seeds, np.float64):
+            v = base.copy()
+            v[:, 7:p_dim] = seed
+            rows.append(v)
+    out = np.stack(rows, axis=1)                # (F, S, P)
+    if n_extra_dims > 0:
+        out = np.concatenate(
+            [out, np.zeros(out.shape[:2] + (n_extra_dims,))], axis=-1)
+    return out
+
+
+def build_px_eval(prob):
+    """fn(x (F, P[+nS]), kp (F, K, 4)) -> (F,) mean pixel error over each
+    frame's valid keypoints (0 for an empty frame) under the solver's
+    forward, the fitted scale included, in x's dtype: how ``fit_adaptive``
+    picks the frames worth multi-starting."""
+    p = frame_param_layout(len(prob.spec.parents))["total"]
+
+    def fn(x, kp):
+        shape = (x[..., p:] if prob.opt_shape
+                 else x.new_zeros(x.shape[:-1] + (prob.n_shapes,)))
+        uv = project(skeleton_joints_cam(x[..., :p], shape, prob.spec),
+                     prob.cam)                                    # (F, nJ, 2)
+        jid = kp[..., 0].long()
+        d = torch.linalg.vector_norm(
+            torch.take_along_dim(uv, jid[..., None], dim=-2) - kp[..., 1:3],
+            dim=-1)
+        v = kp[..., 3]
+        return torch.sum(d * v, dim=-1) / torch.clamp(torch.sum(v, dim=-1),
+                                                       min=1.0)
+    return fn
+
+
+class AdaptiveResult:
+    """fit_adaptive output (numpy): per-frame best params, cost and pixel
+    error, convergence, trips and the cost history of each frame's
+    selected solve, the frames escalated and where the escalation won."""
+
+    def __init__(self, x, cost, px, converged, iters_run, cost_history,
+                 hard_idx, escalated):
+        self.x = x                        # (F, P[+nS])
+        self.cost = cost                  # (F,)
+        self.px = px                      # (F,) mean pixel error
+        self.converged = converged        # (F,) bool
+        self.iters_run = iters_run        # (F,)
+        self.cost_history = cost_history  # (F, H)
+        self.hard_idx = hard_idx          # (n_hard,) frames escalated
+        self.escalated = escalated        # (F,) bool: multi-start result kept
+
+
+def _numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
+
+
+def fit_adaptive(
+    prob,
+    kp_batch: np.ndarray,     # (F, K, 4)
+    max_iters: int,
+    px_thresh: float = 6.0,
+    chunk: int = 0,
+    lm_cfg=None,
+    dtype=None,
+    yaws=(np.pi / 2, -np.pi / 2, np.pi),
+    fitter=None,
+    orient: bool = True,
+    propagate: bool = False,
+) -> AdaptiveResult:
+    """Adaptive multi-start single-frame fitting, on the problem's device:
+
+    1. fit every frame once from the data-driven init;
+    2. multi-start only the frames whose phase-1 mean pixel error exceeds
+       ``px_thresh``: one smaller batch over the other start hypotheses
+       (the extra ``yaws`` around the data init, the reference's blind
+       init and, with a GMM prior, one start per component mean), keeping
+       each hard frame's lowest-cost result over all its starts.
+
+    The reference's phase 3 (``propagate=True``, warm-started solves along
+    the sequence) needs the streaming scan, not ported yet: it raises
+    NotImplementedError naming ROADMAP.md M12. ``fitter``: a prebuilt
+    ``build_fitter`` result to reuse;
+    default one of (max_iters, lm_cfg, chunk) in ``dtype`` (float32)."""
+    from smpltpu_torch.solve.single_frame import build_fitter
+
+    if propagate:
+        raise NotImplementedError(
+            "fit_adaptive(propagate=True) needs the streaming scan "
+            "(solve/online.py::build_online_scan), which is not ported yet "
+            "(ROADMAP.md, M12)")
+    device = prob.spec.base_offsets.device
+    dtype = torch.float32 if dtype is None else dtype
+    kp_batch = np.asarray(kp_batch)
+    f_dim = kp_batch.shape[0]
+    n_j = len(prob.spec.parents)
+    n_extra = prob.n_shapes if prob.opt_shape else 0
+    rest = rest_joints_cam(prob.spec)
+
+    x0 = estimate_frame_init_batch(kp_batch, rest, prob.cam,
+                                   n_joints=n_j, orient=orient)
+    if n_extra:
+        x0 = np.concatenate([x0, np.zeros((f_dim, n_extra))], axis=-1)
+    if fitter is None:
+        fitter = build_fitter(prob, max_iters=max_iters, device=device,
+                              dtype=dtype, lm_cfg=lm_cfg, chunk=chunk)
+    px_eval = build_px_eval(prob)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+    kp_t = t(kp_batch)
+    st_a = fitter(t(x0), kp_t)
+    x, cost, conv, iters, hist, px = (np.array(_numpy(a)) for a in (
+        st_a.x, st_a.cost, st_a.converged, st_a.iters_run,
+        st_a.cost_history, px_eval(st_a.x, kp_t)))
+    escalated = np.zeros(f_dim, bool)
+
+    hard = np.nonzero(px > px_thresh)[0]
+    if hard.size:
+        seeds = (_numpy(prob.gmm.means).astype(np.float64)
+                 if getattr(prob, "gmm", None) is not None else None)
+        s_dim = len(yaws) + 1 + (0 if seeds is None else len(seeds))
+        starts = make_start_set(kp_batch[hard], prob.spec, prob.cam,
+                                yaws=tuple(yaws),
+                                include_reference_init=True,
+                                n_extra_dims=n_extra, pose_seeds=seeds,
+                                orient=orient)
+        kp_b = t(np.repeat(kp_batch[hard], s_dim, axis=0))
+        st_b = fitter(t(starts.reshape(hard.size * s_dim, -1)), kp_b)
+        x_b, cost_bf, conv_b, iters_b, hist_b, px_bf = (_numpy(a) for a in (
+            st_b.x, st_b.cost, st_b.converged, st_b.iters_run,
+            st_b.cost_history, px_eval(st_b.x, kp_b)))
+        px_b = px_bf.reshape(hard.size, s_dim)
+        cost_b = cost_bf.reshape(hard.size, s_dim)
+        best = np.argmin(cost_b, axis=1)
+        rows = np.arange(hard.size)
+        better = cost_b[rows, best] < cost[hard]
+        sel = hard[better]
+        flat = rows[better] * s_dim + best[better]
+        x[sel] = x_b[flat]
+        cost[sel] = cost_b[rows[better], best[better]]
+        px[sel] = px_b[rows[better], best[better]]
+        conv[sel] = conv_b[flat]
+        iters[sel] = iters_b[flat]
+        hist[sel] = hist_b[flat]
+        escalated[sel] = True
+    return AdaptiveResult(x, cost, px, conv, iters, hist, hard, escalated)
+
+
+def best_of_starts(states, f_dim: int, s_dim: int):
+    """Each frame's lowest-cost start of an LMResult whose leading axis is
+    F*S (starts fastest-varying): (x (F, P), cost (F,), best_idx (F,)),
+    numpy."""
+    cost = _numpy(states.cost).reshape(f_dim, s_dim)
+    best = np.argmin(cost, axis=1)
+    x = _numpy(states.x).reshape(f_dim, s_dim, -1)
+    return (x[np.arange(f_dim), best],
+            cost[np.arange(f_dim), best],
+            best)

@@ -21,8 +21,11 @@ blocks by :mod:`smpltpu_torch.solve.tridiag` and the shape Schur
 complement on top), ``linear="pcg"`` (the plain PyTorch PCG loop, any
 dtype and device) or ``linear="pcg_kernel"`` (K1, the CUDA kernel of
 :mod:`smpltpu_torch.ops.cg`, for float32 CUDA tensors; the plain loop on
-the CPU). The two PCG options run the same recursion. "cr" is not ported
-(ROADMAP.md, "Do not port") and "pcg_block" not yet (ROADMAP.md, M13).
+the CPU), or ``linear="pcg_block"`` (the plain loop with a block-diagonal
+preconditioner: the (P, P) blocks of the fit's first linearization and its
+nS x nS shape block, inverted once per fit; K1 stays Jacobi-only). The PCG
+options run the same recursion. "cr" is not ported (ROADMAP.md, "Do not
+port").
 """
 
 from __future__ import annotations
@@ -163,12 +166,11 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
 
     frame_valid masks padding frames: their keypoints must already be
     masked; here it also cuts the temporal coupling across the padding."""
-    if cfg.linear in ("cr", "pcg_block"):
+    if cfg.linear == "cr":
         raise NotImplementedError(
-            f"linear={cfg.linear!r} is not ported (ROADMAP.md: 'cr' under "
-            "'Do not port', 'pcg_block' with M13); use 'tridiag', 'pcg' or "
-            "'pcg_kernel'")
-    if cfg.linear not in ("tridiag", "pcg", "pcg_kernel"):
+            "linear='cr' is not ported (ROADMAP.md, 'Do not port'); use "
+            "'tridiag', 'pcg', 'pcg_block' or 'pcg_kernel'")
+    if cfg.linear not in ("tridiag", "pcg", "pcg_block", "pcg_kernel"):
         raise ValueError(f"unknown linear solver {cfg.linear!r} "
                          "(tridiag | cr | pcg | pcg_block | pcg_kernel)")
 
@@ -241,21 +243,37 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         asm = (h_pp, off_scale, b_pw, c_ww, g_p, g_w_tot)
         return (asm, cost) if with_cost else asm
 
-    def arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w):
+    def block_preconditioner(asm):
+        """pcg_block's preconditioner from the assembly at the fit's start:
+        the inverses of the (P, P) pose blocks and of the shape block,
+        lightly regularized as the dogleg's Gauss-Newton system is."""
+        h_pp, _, _, c_ww, _, _ = asm
+        dg_p = torch.clamp(torch.diagonal(h_pp, dim1=-2, dim2=-1),
+                           cfg.diag_min, cfg.diag_max)
+        dg_w = torch.clamp(torch.diagonal(c_ww, dim1=-2, dim2=-1),
+                           cfg.diag_min, cfg.diag_max)
+        # inv_ex: no host read of the LU's info (a device sync)
+        return (torch.linalg.inv_ex(h_pp + torch.diag_embed(
+                    1e-9 * dg_p + cfg.diag_eps), check_errors=False)[0],
+                torch.linalg.inv_ex(c_ww + torch.diag_embed(
+                    1e-9 * dg_w + cfg.diag_eps), check_errors=False)[0])
+
+    def arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w, prec):
         args = (d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w)
         if cfg.linear == "tridiag":
             return arrow_tridiag(*args)
-        if cfg.linear == "pcg":
+        if cfg.linear in ("pcg", "pcg_block"):
             return cg_ops.arrow_pcg_torch(*args, iters=cfg.cg_iters,
-                                          rtol=cfg.cg_rtol)
+                                          rtol=cfg.cg_rtol, prec=prec)
         # looked up on each call, so a caller may wrap the kernel entry
         return cg_ops.arrow_pcg(*(a.contiguous() for a in args),
                                 iters=cfg.cg_iters, rtol=cfg.cg_rtol)
 
-    def step(state: MultiFrameState, kp, r0, pair_w, asm):
+    def step(state: MultiFrameState, kp, r0, pair_w, asm, prec):
         """One trust-region iteration from the assembly ``asm`` at
-        state.params. Returns (new state, assembly at the new state or
-        None, per-window cost)."""
+        state.params (``prec``: pcg_block's preconditioner, else None).
+        Returns (new state, assembly at the new state or None, per-window
+        cost)."""
         params, w = state.params, state.shape
         h_pp, off_scale, b_pw, c_ww, g_p, g_w = asm
 
@@ -276,7 +294,7 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
             d_blocks = h_pp + torch.diag_embed(1e-9 * diag_p + cfg.diag_eps)
             c_reg = c_ww + torch.diag_embed(1e-9 * diag_w + cfg.diag_eps)
             dp_gn, dw_gn = arrow_solve(d_blocks, off_scale, b_pw, c_reg,
-                                       g_p, g_w)
+                                       g_p, g_w, prec)
             n_gn = torch.sqrt(window_dot(dp_gn, dp_gn) + window_dot(dw_gn, dw_gn))
 
             hg_p, hg_w = hmul(g_p, g_w)
@@ -314,7 +332,8 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
                 diag_p / radius[:, None, None] + cfg.diag_eps)
             c_reg = c_ww + torch.diag_embed(diag_w / radius[:, None]
                                             + cfg.diag_eps)
-            dp, dw = arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w)
+            dp, dw = arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w,
+                                 prec)
 
         params_new = params + dp
         if cfg.freeze_scale:
@@ -412,6 +431,11 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
                                    with_cost=True)
         else:
             cost0 = cost_fn(params0, shape0, kp, r0, pair_w)
+        prec = None
+        if cfg.linear == "pcg_block":
+            prec = block_preconditioner(
+                asm if asm is not None
+                else normal_eq(params0, shape0, kp, r0, pair_w))
         zeros_i = torch.zeros(n_win, dtype=torch.int32, device=device)
         state = MultiFrameState(
             params=params0, shape=shape0, radius=radius0,
@@ -426,7 +450,7 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         while it < cfg.max_iters and not bool(state.converged.all()):
             if not cfg.fused_cost:
                 asm = normal_eq(state.params, state.shape, kp, r0, pair_w)
-            state, asm, cost = step(state, kp, r0, pair_w, asm)
+            state, asm, cost = step(state, kp, r0, pair_w, asm, prec)
             hist[:, it:] = cost[:, None]
             it += 1
         result = MultiFrameResult(*state, cost_history=hist)

@@ -13,20 +13,23 @@ accept/reject sequences and their log.csv error vectors agree to 2.4e-4 px
 (measured), so they are held to 1e-2 px, shapes to 5e-2 as
 ``tests/test_fused_cli.py`` holds fused against sequential.
 
-The full-resolution golden (``tests/data/fullres_golden_video1.npz``) was
-recorded by the JAX CLI under this suite's eight virtual CPU devices, so
-its stage 1 ran the sharded halo-exchange PCG; the port, like the JAX CLI
-with ``--mesh 1``, runs it on one device with the exact solve. Stage 2's
-60 LM iterations end short of convergence, and f32 rounding flips single
-accept/reject decisions: fed the golden run's own stage-2 inputs, the
-port's windows follow its accept sequence up to LM iteration 19, 34 and
-25 (of 60) and then part. The port meets the JAX test's 2 % (+0.02 px) on
-49 of 52 rows; the last window's frames 35-37 drift by up to 5.8 %
-(0.72 px). The JAX CLI itself on one device drifts by up to 9.3 % (frames
-4 and 7, 1.64 px), and so does the port on an H100 (frames 4, 7 and
-35-37 past 2 %, at most 9.3 %, 1.65 px; its mean 1.2 % above the
-golden's). The port is held to 10 % (+0.02 px) per row and to the JAX
-test's absolute gate (mean < 7.5 px), here and in ``chip_smoke.py``.
+The full-resolution golden of the JAX package
+(``tests/data/fullres_golden_video1.npz``) was recorded under this suite's
+eight virtual CPU devices (a sharded stage 1) with 60 stage-2 iterations
+that end short of convergence, so it does not pin the port's one-device
+run. The port is pinned instead to ``fullres_golden_video1_mesh1.npz``,
+which the JAX CLI recorded with ``--mesh 1`` and ``GOLDEN_MESH1_ARGV``
+(400 stage-2 iterations: every window converges; 200 do not, 400, 800
+and 1600 give the same rows bit for bit). Reruns of the JAX CLI on the
+same inputs repeat the pin bit for bit (1 and 8 virtual devices, one
+core), so its spread is measured by ten more runs on keypoints perturbed
+by about one float32 ulp (``record_mesh1_golden``, stored with the pin):
+on 12 of 52 rows the reference itself moves, by up to 3.53 px (frame
+19's row lands in another optimum, 18 %), the runs among themselves by
+at most 0.074 px elsewhere. The port (CPU: at most 0.078 px past that
+spread) is held per row to the reference's spread on that row plus 1 % +
+0.02 px, and to the JAX test's absolute gate (mean < 7.5 px), here and in
+``chip_smoke.py``.
 """
 
 import json
@@ -82,11 +85,19 @@ def _one_torch_thread():
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VIDEO1_KPS = fixture_path("data/keypoints/video1")
 VIDEO1_FRAMES = fixture_path("data/frames_annotated/video1")
-GOLDEN = os.path.join(REPO, "tests", "data", "fullres_golden_video1.npz")
+GOLDEN_MESH1 = os.path.join(REPO, "tests", "data",
+                            "fullres_golden_video1_mesh1.npz")
+# the golden argv of tests/test_fullres_golden.py with enough stage-2
+# iterations for every window to converge (200 do not; 400, 800 and 1600
+# give the same rows bit for bit)
+GOLDEN_MESH1_ARGV = ["150", "60", "10", "20", "5", "5.0", "25.0", "3.0",
+                     "--s2-iters", "400", "--batched-windows", "--data-init",
+                     "--init-from-anchors"]
+GOLDEN_PERTURB_REL = 1e-7
 # the numeric argv of the JAX package's multi CLI tests
 NUMERIC = ["30", "30", "3", "4", "1", "2.0", "25.0", "1.0", "--s2-iters", "20"]
 LOG_ATOL_PX, SHAPE_ATOL = 1e-2, 5e-2
-GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_MEAN_MAX = 0.10, 0.02, 7.5
+GOLDEN_RTOL, GOLDEN_ATOL, GOLDEN_MEAN_MAX = 0.01, 0.02, 7.5
 
 
 @pytest.fixture(scope="module")
@@ -578,8 +589,6 @@ def test_cli_count_mismatch_and_usage(dataset, tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2"], "M14"),
-    (["--multi-start"], "M11"),
-    (["--linear", "pcg_block"], "M13"),
     (["--linear", "cr"], "Do not port"),
     (["--ckpt-backend", "orbax"], "Do not port"),
 ])
@@ -608,29 +617,94 @@ def test_cli_needs_the_card_by_default(dataset, tmp_path, capsys):
     assert not os.path.exists(tmp_path / "o2")
 
 
+def _golden_inputs(root):
+    """The golden's model (300 vertices) and blank 1280 x 720 (H x W)
+    frames under ``root``: (model path, image directory)."""
+    model_path = os.path.join(root, "model.npz")
+    t_io.save_smpl_npz(model_path, make_synthetic_model(n_verts=300, seed=0))
+    img_dir = os.path.join(root, "imgs")
+    os.makedirs(img_dir, exist_ok=True)
+    for i in range(0, 380, 10):
+        t_image.imwrite(os.path.join(img_dir, f"frame_{i:04d}.png"),
+                        np.zeros((1280, 720, 3), np.uint8))
+    return model_path, img_dir
+
+
+def golden_limit(g):
+    """Per-row bound on the distance of a run's log.csv errors from the
+    pin: the reference's own spread on that row, then 1 % + 0.02 px."""
+    spread = np.abs(g["errs_perturbed"] - g["errs"]).max(axis=0)
+    return spread + GOLDEN_ATOL + GOLDEN_RTOL * np.abs(g["errs"])
+
+
 @pytest.mark.skipif(not os.path.isdir(VIDEO1_KPS),
                     reason="reference fixture not mounted")
 def test_cli_fullres_golden(tmp_path):
-    """The golden's argv (tests/test_fullres_golden.py) through the port's
-    CLI: video1's keypoints, blank 1280 x 720 (H x W) frames, the
-    300-vertex synthetic model; tolerances in the module docstring."""
-    from tests.test_fullres_golden import ARGV_FLAGS, ARGV_NUMERIC
-
-    model_path = str(tmp_path / "model.npz")
-    t_io.save_smpl_npz(model_path, make_synthetic_model(n_verts=300, seed=0))
-    img_dir = tmp_path / "imgs"
-    img_dir.mkdir()
-    for i in range(0, 380, 10):
-        t_image.imwrite(str(img_dir / f"frame_{i:04d}.png"),
-                        np.zeros((1280, 720, 3), np.uint8))
+    """The golden's argv with converged windows (``GOLDEN_MESH1_ARGV``)
+    through the port's CLI on video1's keypoints, against the pin the JAX
+    CLI recorded with ``--mesh 1``; the bound is in the module docstring."""
+    model_path, img_dir = _golden_inputs(str(tmp_path))
     out = str(tmp_path / "out")
-    assert t_multi.main([model_path, VIDEO1_KPS, str(img_dir), out]
-                        + ARGV_NUMERIC + ARGV_FLAGS, device="cpu") == 0
+    assert t_multi.main([model_path, VIDEO1_KPS, img_dir, out]
+                        + GOLDEN_MESH1_ARGV, device="cpu") == 0
     frames, errs = _log(out)
-    g = np.load(GOLDEN)
+    g = np.load(GOLDEN_MESH1)
     np.testing.assert_array_equal(frames, g["frames"])
-    np.testing.assert_allclose(errs, g["errs"], rtol=GOLDEN_RTOL,
-                               atol=GOLDEN_ATOL)
+    drift = np.abs(errs - g["errs"])
+    limit = golden_limit(g)
+    assert (drift <= limit).all(), (drift - limit).max()
     assert errs.mean() < GOLDEN_MEAN_MAX
     params = np.load(os.path.join(out, "params_multi.npz"))["params"]
     assert params.shape == g["params"].shape and np.isfinite(params).all()
+
+
+def _perturbed_keypoints(src, dst, seed):
+    """A copy of the keypoint JSONs with every landmark's x and y scaled
+    by 1 + 1e-7 N(0, 1): a change of about one float32 ulp of the
+    keypoints' pixels."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(dst, exist_ok=True)
+    for name in sorted(os.listdir(src)):
+        lms = json.load(open(os.path.join(src, name)))
+        for lm in lms:
+            for k in ("x", "y"):
+                lm[k] *= 1.0 + GOLDEN_PERTURB_REL * rng.normal()
+        json.dump(lms, open(os.path.join(dst, name), "w"))
+    return dst
+
+
+def record_mesh1_golden(path=GOLDEN_MESH1, seeds=tuple(range(1, 11))):
+    """Run the JAX CLI with ``--mesh 1`` on the golden's inputs and
+    ``GOLDEN_MESH1_ARGV`` and write the pin: its log.csv rows and params,
+    and the rows of the same run on keypoints perturbed by about one
+    float32 ulp (one run a seed), the reference's spread. Reruns on the
+    same inputs repeat the pin bit for bit (1 and 8 virtual devices, one
+    core)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        model_path, img_dir = _golden_inputs(root)
+        runs = []
+        for seed in (None,) + tuple(seeds):
+            kps = (VIDEO1_KPS if seed is None else _perturbed_keypoints(
+                VIDEO1_KPS, os.path.join(root, f"kps{seed}"), seed))
+            out = os.path.join(root, f"out{seed}")
+            assert j_multi.main([model_path, kps, img_dir, out]
+                                + GOLDEN_MESH1_ARGV + ["--mesh", "1"]) == 0
+            runs.append(_log(out) + (np.load(os.path.join(
+                out, "params_multi.npz"))["params"],))
+    frames, errs, params = runs[0]
+    np.savez(path, frames=frames, errs=errs, params=params,
+             errs_perturbed=np.stack([r[1] for r in runs[1:]]),
+             seeds=np.asarray(seeds), perturb_rel=GOLDEN_PERTURB_REL,
+             argv=np.asarray(GOLDEN_MESH1_ARGV))
+
+
+if __name__ == "__main__":
+    # python -m tests.test_torch_cli --record-golden: rewrite the pin
+    # (under the test session's JAX settings: 8 virtual CPU devices, x64)
+    import tests.conftest  # noqa: F401
+
+    if sys.argv[1:] != ["--record-golden"]:
+        raise SystemExit("usage: python -m tests.test_torch_cli --record-golden")
+    record_mesh1_golden()

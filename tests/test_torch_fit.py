@@ -176,9 +176,9 @@ def test_fused_two_stage_matches_jax(small_model_dict, jax_side):
 
 def test_linear_options(small_model_dict):
     """pcg_kernel takes the same plain loop on the CPU; cyclic reduction
-    and the block preconditioner are not ported and say so (the exact
-    "tridiag" solve is held against the reference in
-    tests/test_torch_tridiag.py)."""
+    is not ported and says so (the exact "tridiag" solve is held against
+    the reference in tests/test_torch_tridiag.py, the block preconditioner
+    in tests/test_torch_single.py)."""
     rig = make_rig(small_model_dict, 4, seed=10)
     outs = {}
     for lin in ("pcg", "pcg_kernel"):
@@ -191,11 +191,10 @@ def test_linear_options(small_model_dict):
                         torch.as_tensor(rig["kp"]), torch.as_tensor(rig["r0"]))
     for a, b in zip(outs["pcg"], outs["pcg_kernel"]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    for lin in ("cr", "pcg_block"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_multi_fitter(rig["spec"], rig["cam"],
-                               MultiFrameConfig(**dict(CFG, linear=lin)), 10,
-                               device=CPU, dtype=F64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_multi_fitter(rig["spec"], rig["cam"],
+                           MultiFrameConfig(**dict(CFG, linear="cr")), 10,
+                           device=CPU, dtype=F64)
     with pytest.raises(ValueError, match="unknown linear solver"):
         build_multi_fitter(rig["spec"], rig["cam"],
                            MultiFrameConfig(**dict(CFG, linear="pcg-kernel")),

@@ -31,6 +31,7 @@ SLICE_MODULES = [
     "smpltpu_torch.energy.reproj",
     "smpltpu_torch.energy.temporal",
     "smpltpu_torch.energy.priors",
+    "smpltpu_torch.energy.robust",
     "smpltpu_torch.energy.jacobian",
     "smpltpu_torch.solve",
     "smpltpu_torch.solve.lm",
@@ -38,6 +39,7 @@ SLICE_MODULES = [
     "smpltpu_torch.solve.two_stage",
     "smpltpu_torch.solve.tridiag",
     "smpltpu_torch.solve.init",
+    "smpltpu_torch.solve.single_frame",
     "smpltpu_torch.io",
     "smpltpu_torch.io.smpl_npz",
     "smpltpu_torch.io.gmm",
@@ -59,6 +61,7 @@ SLICE_MODULES = [
     "smpltpu_torch.pipeline",
     "smpltpu_torch.pipeline.common",
     "smpltpu_torch.pipeline.multi",
+    "smpltpu_torch.pipeline.single",
 ]
 # every source file of the port, and the card check
 PORT_FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(

@@ -12,6 +12,7 @@ the reference's order, so u, v, the edge coefficients, keys and the cull
 agree bit for bit, and the images must agree in every pixel.
 """
 
+import os
 import re
 from pathlib import Path
 
@@ -40,6 +41,7 @@ from smpltpu_torch.render.zbuffer import (
     rasterize_torch,
     rasterize_verts,
 )
+from tests.conftest import fixture_path
 
 FX = FY = 200.0
 CX, CY = 64.0, 48.0
@@ -434,3 +436,35 @@ def test_painter_copy_matches_cv2_fill(small_model_dict):
                                          np.zeros((H, W, 3), np.uint8),
                                          FX, FY, CX, CY)
     np.testing.assert_array_equal(got, want)
+
+
+# chip_smoke.py's cli_single: the single CLI with the full-width model on
+# video1's keypoints and frames, and the mean of its log.csv on the CPU
+CLI_SINGLE_ARGV = ["--multi-start", "--jax-render", "--freeze-scale"]
+CLI_SINGLE_CPU_MEAN_PX = 8.839078050671201
+
+
+@pytest.mark.skipif(not os.path.isdir(fixture_path("data/keypoints/video1")),
+                    reason="video1 fixture unavailable")
+def test_single_cli_renders_video1_full_width(tmp_path):
+    """The single CLI with chip_smoke.py's cli_single argv on the CPU: the
+    full-width synthetic model on video1's keypoints and 480 x 270 frames,
+    every frame with keypoints rasterized by K3's plain version; its mean
+    error is the card run's reference. One torch thread, as the CLI tests
+    run (the mean moves by 2e-4 px with the thread count)."""
+    from smpltpu_torch.pipeline import single
+
+    out = str(tmp_path / "o")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert single.main(["synthetic", fixture_path("data/keypoints/video1"),
+                            fixture_path("data/frames_annotated/video1"), out]
+                           + CLI_SINGLE_ARGV, device="cpu") == 0
+    finally:
+        torch.set_num_threads(n)
+    rows = open(os.path.join(out, "log.csv")).read().splitlines()[1:]
+    errs = np.array([float(r.split(",")[1]) for r in rows])
+    assert len(errs) == 33 and np.isfinite(errs).all()
+    assert abs(errs.mean() - CLI_SINGLE_CPU_MEAN_PX) < 5e-3, errs.mean()
+    assert len([f for f in os.listdir(out) if f.endswith("_render.png")]) == 33
