@@ -62,7 +62,17 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    own float64 fit; the float64 fit with ``tr_solver="eigh"`` against
    chol's; the GMM prior with a start per component; all 1000 frames in
    chunks of 128 against one batch.
-8. the port's CLIs through ``main(argv)`` on the card, each run in a
+8. the streaming path, phases ``10 stream_*`` (``stream_phases``):
+   bench.py's BENCH_STREAM, BENCH_STREAM_SCAN and BENCH_STREAM_PUMP
+   workload, the first STREAM_FRAMES frames with the shape of the timed
+   fit's stage 1: the online trip's factorizations and solves captured
+   into CUDA graphs at batch 1 under sync-debug "error"; the eager step
+   loop (latency, LM trips, device launches and host syncs a trip); the
+   causal replay on the CUDA graph of one LM trip and the request pump,
+   each held to the step loop within STREAM_AGREE_MAX of scale; held
+   frames bit-equal to the frame before in all three paths; the step loop
+   in float64, its mean px against float32's.
+9. the port's CLIs through ``main(argv)`` on the card, each run in a
    directory under ``build/chip_smoke_cli`` (removed afterwards), phases
    ``8 cli_*``: ``cli_default`` (the full-width synthetic model on
    data/keypoints/video1 and its 480 x 270 frames, the default argv:
@@ -73,11 +83,17 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    ``cli_kernels`` (the golden's argv at full width with --fused-stages
    --linear pcg_kernel --jax-render beside --linear pcg on the sequential
    stages) and ``cli_single`` (the single CLI, the full-width model on
-   video1 with ``CLI_SINGLE_ARGV``, its mean held to the CPU run's). Every
-   K3 launch of the last four runs is held pixel-exact against
-   ``rasterize_torch``; each line carries the run's wall s, stage ms and
-   kernel launches.
-9. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+   video1 with ``CLI_SINGLE_ARGV``, its mean held to the CPU run's), then
+   the stream CLI four ways (``cli_stream*``: ``--jax-render``, ``--scan
+   --warm-timing``, ``--pump`` and ``--use-gmm`` with the prior of
+   data/avatar-model, the full-width model on video1; each mean held to
+   the CPU run's, the three stream paths' rows to each other). Every K3
+   launch of the runs with K3 is held pixel-exact against
+   ``rasterize_torch``; each line carries the run's wall s, stage ms (the
+   stream CLI's latency line) and kernel launches. ``8 api_fit_video``:
+   the library's ``fit_video(mode="stream", want_verts=True)`` on phase
+   10's frames (K2 in its evaluation).
+10. one more fit under torch.profiler, at a fifth of the depth (30 + 12
    LM iterations: the profiler takes half a minute to digest a full
    fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
    launches, the idle share; last, so that the profiler's cost touches
@@ -111,6 +127,7 @@ no CUDA device, or a directory without the port.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -155,6 +172,30 @@ SINGLE_PROFILE_TRIPS = 10      # the profiled and sync-counted run
 # allowed on the card
 CLI_SINGLE_ARGV = ["--multi-start", "--jax-render", "--freeze-scale"]
 CLI_SINGLE_CPU_MEAN_PX, CLI_SINGLE_GAP_MAX_PX = 8.839078050671201, 0.05
+# phase 10, bench.py's BENCH_STREAM, BENCH_STREAM_SCAN and BENCH_STREAM_PUMP
+# rows (bench.py:513-630): from the init pose with no previous frame, the
+# shape of phase 5's stage 1, f32; the first 100 frames where bench.py
+# streams 200 (the eager loop takes ~0.2 s a frame on the card, and the
+# smoke would pass ~220 s at 200: PERF.md section 4)
+STREAM_FRAMES, STREAM_HOLD_FRAMES = 100, 30
+STREAM_CFG = dict(beta_pose=5.0, lambda_temporal=3.0, max_iters=20)
+STREAM_AGREE_MAX = 1e-4        # scan and pump against the step loop, of scale
+STREAM_F64_GAP_MAX_PX = 0.1    # the f32 loop's mean px against f64's
+STREAM_PROFILE_TRIPS = 10      # the profiled one-frame step
+STREAM_PROFILE_FRAMES = 5      # the profiled scan (the profiler digests
+                               # ~900 records a trip slowly)
+# cli_stream: the port's stream CLI on video1 with the full-width model,
+# four argvs; each log.csv mean held to the port's CPU run of the same argv
+# (smpltpu_torch.pipeline.stream.main(argv, device="cpu"), measured once
+# with torch 2.13 on the CPU), the three stream paths' rows to each other
+CLI_STREAM_RUNS = (
+    ("cli_stream", ["--jax-render"], 2.7063452438874678),
+    ("cli_stream_scan", ["--scan", "--warm-timing"], 2.7063452438874678),
+    ("cli_stream_pump", ["--pump"], 2.7063452438874678),
+    ("cli_stream_gmm", ["--use-gmm", "--pose-prior",
+                        "data/avatar-model/pose_prior.txt"], 8.501055887251189),
+)
+CLI_STREAM_GAP_MAX_PX, CLI_STREAM_ROWS_AGREE_PX = 0.05, 1e-4
 H_R, W_R = 1280, 720          # render size: the bench camera at full size
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
@@ -417,8 +458,8 @@ def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
     f32 = torch.float32
     rng = np.random.default_rng(0)
     kw = {} if n_verts is None else {"n_verts": n_verts}
-    model = SMPLModel.from_dict(make_synthetic_model(**kw), device=device,
-                                dtype=f32)
+    model_dict = make_synthetic_model(**kw)
+    model = SMPLModel.from_dict(model_dict, device=device, dtype=f32)
     cam = default_intrinsics(720, 1280, device=device, dtype=f32)
     spec = make_skeleton_spec(model, init_root_rotation(), with_shape=True)
     r0c = np.asarray(init_root_rotation(), np.float32)
@@ -464,7 +505,8 @@ def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
             torch.zeros(10, device=device), t(kp[anchor_idx]),
             t(np.tile(r0c, (n_a, 1, 1))), t(kpw),
             t(np.tile(r0c, (len(starts), WSIZE, 1, 1))), t(vw))
-    return {"model": model, "cam": cam, "spec": spec, "r0c": r0c, "kp": kp,
+    return {"model": model, "model_dict": model_dict, "cam": cam,
+            "spec": spec, "r0c": r0c, "kp": kp,
             "starts": starts, "anchor_idx": anchor_idx, "args": args,
             "n_frames": n_frames, "use_smpl": USE_SMPL}
 
@@ -997,9 +1039,11 @@ def tridiag_phase(first, k1_main, checks):
 
 
 def cli_run(label, argv, root, checks, k3_check=False, cli="multi"):
-    """The port's multi (or ``cli="single"``) CLI, ``main(argv)`` on the
-    card, into a directory of its own under ``root``; the launch counts set
-    to 0 just before and read just after. ``k3_check`` holds every K3
+    """The port's multi (or ``cli="single"``, ``"stream"``) CLI,
+    ``main(argv)`` on the card, into a directory of its own under ``root``;
+    the launch counts set to 0 just before and read just after. The stream
+    CLI's line carries its latency line and calibration ms in place of the
+    metrics events the other two write. ``k3_check`` holds every K3
     launch of the run (its ``rasterize_verts`` calls from the overlay)
     against ``rasterize_torch`` on the same face setup, pixel for pixel;
     those plain calls launch no kernel. -> the run's numbers, its log.csv
@@ -1009,11 +1053,12 @@ def cli_run(label, argv, root, checks, k3_check=False, cli="multi"):
     import torch
     import smpltpu_torch.pipeline.common as common
     from smpltpu_torch.ops import LAUNCHES
-    from smpltpu_torch.pipeline import multi, single
+    from smpltpu_torch.pipeline import multi, single, stream
     from smpltpu_torch.render.zbuffer import face_setup, rasterize_torch
 
     out = os.path.join(root, label)
-    full = argv[:3] + [out] + argv[3:] + ["--metrics-jsonl", out + ".jsonl"]
+    full = argv[:3] + [out] + argv[3:] + (
+        [] if cli == "stream" else ["--metrics-jsonl", out + ".jsonl"])
     k3 = {"launches_checked": 0, "differing_px": 0, "sizes": set()}
     real = common.rasterize_verts
 
@@ -1033,7 +1078,8 @@ def cli_run(label, argv, root, checks, k3_check=False, cli="multi"):
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(said), contextlib.redirect_stderr(said):
-            rc = {"multi": multi, "single": single}[cli].main(full)
+            rc = {"multi": multi, "single": single,
+                  "stream": stream}[cli].main(full)
         torch.cuda.synchronize()
     finally:
         common.rasterize_verts = real
@@ -1049,26 +1095,40 @@ def cli_run(label, argv, root, checks, k3_check=False, cli="multi"):
                f"cli {label}: log.csv header {rows[0]!r}")
         frames = np.array([int(r.split(",")[0]) for r in rows[1:]])
         errs = np.array([float(r.split(",")[1]) for r in rows[1:]])
-        events = [json.loads(line) for line in open(out + ".jsonl")]
-        # the fused path's window events carry shares of its one time
-        fused = [e["ms"] for e in events if e["event"] == "fused_two_stage"]
-        res["stage_ms"] = (
-            {"solve": sum(e["ms"] for e in events
-                          if e["event"] == "single_solve")}
-            if cli == "single" else {"fused": fused[0]} if fused else {
-                "stage1": sum(e["ms"] for e in events
-                              if e["event"] == "stage1"),
-                "windows": sum(e["ms"] for e in events
-                               if e["event"] == "window")})
+        if cli == "stream":
+            text = said.getvalue()
+            lat = re.search(r"latency mean ([\d.]+) ms, p50 ([\d.]+) ms, "
+                            r"p95 ([\d.]+) ms", text)
+            calib = re.search(r"calibrated shape on \d+ frames: solve "
+                              r"([\d.]+) ms", text)
+            res["latency_ms"] = (dict(zip(("mean", "p50", "p95"), map(
+                float, lat.groups()))) if lat else None)
+            res["stage_ms"] = {"calibrate": float(calib.group(1))
+                               if calib else None}
+        else:
+            events = [json.loads(line) for line in open(out + ".jsonl")]
+            # the fused path's window events carry shares of its one time
+            fused = [e["ms"] for e in events
+                     if e["event"] == "fused_two_stage"]
+            res["stage_ms"] = (
+                {"solve": sum(e["ms"] for e in events
+                              if e["event"] == "single_solve")}
+                if cli == "single" else {"fused": fused[0]} if fused else {
+                    "stage1": sum(e["ms"] for e in events
+                                  if e["event"] == "stage1"),
+                    "windows": sum(e["ms"] for e in events
+                                   if e["event"] == "window")})
         res.update(rows=len(frames), mean_px=float(errs.mean()),
                    max_px=float(errs.max()), finite=bool(np.isfinite(errs).all()))
         checks(res["finite"], f"cli {label}: non-finite errors in log.csv")
         pz = np.load(os.path.join(out, f"params_{cli}.npz"))
         res["params_shape"] = [list(pz["params"].shape), list(pz["shape"].shape)]
-        png = "_render.png" if cli == "single" else "_multi.png"
+        png = {"single": "_render.png", "multi": "_multi.png",
+               "stream": "_stream.png"}[cli]
         res["pngs"] = len([n for n in os.listdir(out) if n.endswith(png)])
-        res["loss_curve_rows"] = len(open(os.path.join(
-            out, "loss_curve.txt")).read().splitlines()) - 1
+        if cli != "stream":
+            res["loss_curve_rows"] = len(open(os.path.join(
+                out, "loss_curve.txt")).read().splitlines()) - 1
     if k3_check:
         res["k3_check"] = dict(k3, sizes=sorted(k3["sizes"]))
         checks(k3["launches_checked"] > 0 and k3["differing_px"] == 0
@@ -1193,7 +1253,74 @@ def cli_phases(checks):
                    f"{CLI_SINGLE_CPU_MEAN_PX}, {res}")
         res.update(ok=ok, cpu_mean_px=CLI_SINGLE_CPU_MEAN_PX, gap_px=gap)
     phase("8 cli_single", **res)
+
+    # cli_stream: the stream CLI four ways, each mean against the CPU run's;
+    # the three stream paths' rows against each other
+    rows = {}
+    for label, extra, cpu_mean in CLI_STREAM_RUNS:
+        extra = [os.path.join(here, a) if a.startswith("data/") else a
+                 for a in extra]
+        res, frames, errs = cli_run(
+            label, ["synthetic", kps, frames_dir] + extra, root, checks,
+            k3_check="--jax-render" in extra, cli="stream")
+        if res["rc"] == 0:
+            rows[label] = (frames, errs)
+            gap = abs(res["mean_px"] - cpu_mean)
+            n_rows = len(frames)
+            render = "--jax-render" in extra
+            ok = bool(gap <= CLI_STREAM_GAP_MAX_PX and n_rows > 0
+                      and res["latency_ms"] is not None
+                      and res["params_shape"] == [[n_kp, 76], [n_kp, 10]]
+                      and res["pngs"] == (n_rows if render else 0)
+                      and (not render
+                           or (res["launches"].get("lbs", 0) > 0
+                               and res["launches"].get("raster", 0)
+                               == n_rows)))
+            checks(ok, f"{label}: mean {res['mean_px']} px against the "
+                       f"CPU's {cpu_mean}, {res}")
+            res.update(ok=ok, cpu_mean_px=cpu_mean, gap_px=gap)
+        phase(f"8 {label}", **res)
+    paths = [rows.get(k) for k in ("cli_stream", "cli_stream_scan",
+                                   "cli_stream_pump")]
+    if all(r is not None for r in paths):
+        same_frames = all(np.array_equal(paths[0][0], r[0]) for r in paths)
+        apart = max(float(np.abs(paths[0][1] - r[1]).max())
+                    for r in paths) if same_frames else float("inf")
+        ok = bool(same_frames and apart <= CLI_STREAM_ROWS_AGREE_PX)
+        checks(ok, f"cli_stream: the three paths' rows {apart} px apart")
+        phase("8 cli_stream_paths", ok=ok, rows_apart_px=apart,
+              bitwise=bool(apart == 0.0))
     shutil.rmtree(root, ignore_errors=True)
+
+
+def api_phase(w, dev, checks):
+    """``8 api_fit_video``: ``fit_video(mode="stream", want_verts=True)``, the
+    library entry point, on phase 10's frames of the bench workload and the
+    full-width model (calibration on the first 10 frames, the causal
+    replay over the rest, K2 in the evaluation); the launch counts set to 0
+    just before and read just after."""
+    import torch
+    from smpltpu_torch.ops import LAUNCHES
+    from smpltpu_torch.pipeline.api import fit_video
+
+    kp = w["kp"][:STREAM_FRAMES]
+    LAUNCHES.clear()
+    res, wall_s = timed(lambda: fit_video(
+        w["model_dict"], kp, 720, 1280, mode="stream", want_verts=True,
+        device=dev))
+    launches = {k: v for k, v in LAUNCHES.items() if "@" not in k}
+    ok = bool(res.params.shape == (len(kp), 76)
+              and np.isfinite(res.errors_px).all()
+              and res.verts.shape == (len(kp), w["model"].num_verts, 3)
+              and np.isfinite(res.verts).all()
+              and launches.get("lbs", 0) > 0
+              and launches.get("arrow_pcg", 0) == 0)
+    checks(ok, f"api_fit_video: launches {launches}, px finite "
+               f"{np.isfinite(res.errors_px).all()}")
+    phase("8 api_fit_video", ok=ok, frames=len(kp), wall_s=wall_s,
+          launches=launches, mean_px=float(res.errors_px.mean()),
+          converged=int(res.converged.sum()),
+          verts_shape=list(res.verts.shape))
 
 
 def single_problem(w, dtype, gmm=None, beta_pose=SINGLE_BETA_POSE):
@@ -1413,6 +1540,269 @@ def single_phases(w, dev, checks):
           chunked_mean_px=float(frame_px(prob, stc.x, w["kp"]).mean()))
 
 
+def stream_px(w, xs, shp, kp):
+    """Each frame's mean keypoint error (px) under the solver's model with
+    the locked shape ``shp``: xs (F, P) -> (F,) numpy."""
+    import torch
+    from smpltpu_torch.energy import project, skeleton_joints_cam
+    dev = w["spec"].r0.device
+    x = torch.as_tensor(np.asarray(xs), device=dev).to(torch.float32)
+    uv = project(skeleton_joints_cam(x, shp.to(dev, torch.float32),
+                                     w["spec"]), w["cam"])
+    kp_t = torch.as_tensor(kp, device=dev)
+    return torch.linalg.norm(uv[:, w["use_smpl"]] - kp_t[:, :, 1:3],
+                             dim=-1).mean(-1).cpu().numpy()
+
+
+def rel_apart(a, b):
+    """The largest difference of two (F, P) parameter sets, each frame's
+    relative to that frame's scale (its largest |entry| in ``b``)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b).max(-1)
+                  / np.maximum(np.abs(b).max(-1), 1e-30)).max())
+
+
+def capture_checks(dev):
+    """Each factorization and solve the online trip runs (and ``solve_ex``
+    of the damped mode), at batch 1 and P = 76, captured into a CUDA graph
+    under sync-debug "error" and replayed: {name: error or "clean", and the
+    largest difference from the eager call}."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(0)
+    a0 = torch.randn(1, 76, 76, generator=g, dtype=torch.float64)
+    a = (a0 @ a0.transpose(1, 2) + 76 * torch.eye(76, dtype=torch.float64)
+         ).to(device=dev, dtype=torch.float32)
+    b = torch.randn(1, 76, 1, generator=g).to(dev)
+    ell = torch.linalg.cholesky(a)
+    ops = {
+        "cholesky_ex": lambda: torch.linalg.cholesky_ex(
+            a, check_errors=False)[0],
+        "cholesky_solve": lambda: torch.cholesky_solve(b, ell),
+        "solve_triangular": lambda: torch.linalg.solve_triangular(
+            ell, b, upper=False),
+        "solve_ex": lambda: torch.linalg.solve_ex(a, b[..., 0],
+                                                  check_errors=False)[0],
+    }
+    out = {}
+    for name, fn in ops.items():
+        want = fn()
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    got = fn()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            graph.replay()
+            err = "clean"
+        except RuntimeError as e:
+            err, got = str(e)[:300], None
+        torch.cuda.synchronize()
+        out[name] = {"capture": err, "max_abs_diff": (
+            None if got is None else float((got - want).abs().max()))}
+    return out
+
+
+def stream_phases(w, shp, dev, checks):
+    """Phase 10, the streaming path on bench.py's BENCH_STREAM* workload:
+    the first STREAM_FRAMES frames from the init pose, the shape ``shp``
+    of phase 5's stage 1, OnlineConfig(**STREAM_CFG), f32.
+
+    ``stream_capture``: each solver call of the online trip (and the
+    damped mode's ``solve_ex``) captured at batch 1 under sync-debug
+    "error". ``stream_step``: ``OnlineFitter.step`` frame by frame (the
+    eager LM loop) after a one-trip warm-up: latency, LM trips a frame,
+    device launches and host syncs a trip (profiler and sync-debug "warn"
+    over a 1-trip and a STREAM_PROFILE_TRIPS-trip step), peak GiB, mean px.
+    ``stream_scan``: ``OnlineFitter.replay`` over the same frames on the
+    trip graph, timed after a first run (the capture): graph replays a
+    frame, launches and syncs a frame, its distance from the step loop
+    relative to scale. ``stream_pump``: the frames submitted one at a time
+    after a sacrificial frame: latency, distance from the step loop.
+    ``stream_hold``: every 10th of the first STREAM_HOLD_FRAMES frames
+    emptied; in all three paths a held frame equals the frame before, bit
+    for bit, unsolved. ``stream_f64``: the step loop in float64, mean px
+    against the float32 loop's."""
+    import torch
+    from smpltpu_torch.energy.params import init_frame_params
+    from smpltpu_torch.solve.online import (
+        OnlineConfig,
+        OnlineFitter,
+        build_online_step,
+    )
+    f32, f64 = torch.float32, torch.float64
+    n = STREAM_FRAMES
+    kp = w["kp"][:n]
+    cfg = OnlineConfig(**STREAM_CFG)
+    x_init = init_frame_params(device=dev, dtype=f32)
+
+    def fitter(dtype=f32, config=cfg):
+        return OnlineFitter(w["model"], w["cam"], config, shape=shp,
+                            device=dev, dtype=dtype)
+
+    def step_loop(fit, frames):
+        lat, xs, trips, solved = [], [], [], []
+        for k in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, res = fit.step(k)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            xs.append(x)
+            trips.append(0 if res is None else int(res.iters_run[0]))
+            solved.append(res is not None)
+        return (np.asarray(lat), np.stack(xs), np.asarray(trips),
+                np.asarray(solved))
+
+    def pct(lat):
+        return {"mean": float(lat.mean()), "p50": float(np.percentile(lat, 50)),
+                "p95": float(np.percentile(lat, 95))}
+
+    # stream_capture
+    cap = capture_checks(dev)
+    ok = all(v["capture"] == "clean" and v["max_abs_diff"] <= 1e-4
+             for v in cap.values())
+    checks(ok, f"stream_capture: {cap}")
+    phase("10 stream_capture", ok=ok, **cap)
+
+    # stream_step
+    fit = fitter()
+    prev = fit.prev[None]
+    one = build_online_step(fit.spec, fit.cam, cfg._replace(max_iters=1),
+                            w["model"].num_joints, device=dev, dtype=f32)
+    one(prev, fit.shape, kp[:1], prev, torch.zeros(1, device=dev))
+    torch.cuda.reset_peak_memory_stats()
+    lat, xs_step, trips, _ = step_loop(fit, kp)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    px32 = stream_px(w, xs_step, fit.shape, kp)
+    counts = {}
+    x1 = torch.as_tensor(xs_step[:1], device=dev)
+    for k in (1, STREAM_PROFILE_TRIPS):
+        short = build_online_step(fit.spec, fit.cam,
+                                  cfg._replace(max_iters=k),
+                                  w["model"].num_joints, device=dev,
+                                  dtype=f32)
+        r, launches, syncs = launches_and_syncs(lambda: short(
+            x1, fit.shape, kp[1:2], x1, torch.ones(1, device=dev)))
+        counts[k] = (int(r.iters_run[0]), launches, syncs)
+    (t1, l1, s1), (tk, lk, sk) = counts[1], counts[STREAM_PROFILE_TRIPS]
+    per_trip = (lk - l1) / max(tk - t1, 1)
+    syncs_per_trip = (sk - s1) / max(tk - t1, 1)
+    ok = bool(np.isfinite(px32).all() and syncs_per_trip <= 1.0
+              and tk > t1)
+    checks(ok, f"stream_step: px finite {np.isfinite(px32).all()}, "
+               f"{syncs_per_trip} syncs a trip, profiled trips {t1}, {tk}")
+    phase("10 stream_step", ok=ok, frames=n, **STREAM_CFG,
+          latency_ms=pct(lat), frames_per_s=1e3 / lat.mean(),
+          lm_trips_per_frame=float(trips.mean()),
+          lm_trips_max=int(trips.max()), lm_trips_first=int(trips[0]),
+          device_launches_per_trip=per_trip,
+          host_syncs_per_trip=syncs_per_trip,
+          profiled_runs={str(k): list(v) for k, v in counts.items()},
+          peak_gib=peak_gib, mean_px=float(px32.mean()))
+
+    # stream_scan: the first run captures the trip graph; the second is
+    # timed; both from the init pose with no previous frame
+    fit_s = fitter()
+    _, first_s = timed(lambda: fit_s.replay(kp))
+    scan = fit_s._scan
+    graph = scan.__self__
+    trips0 = graph.trips
+    out, scan_s = timed(lambda: scan(x_init, fit_s.shape, kp, 0.0))
+    replays = graph.trips - trips0
+    xs_scan = out[0].cpu().numpy()
+    apart = rel_apart(xs_scan, xs_step)
+    _, s_launches, s_syncs = launches_and_syncs(
+        lambda: scan(x_init, fit_s.shape, kp[:STREAM_PROFILE_FRAMES], 0.0))
+    s_trips = graph.trips - trips0 - replays
+    ok = bool(apart <= STREAM_AGREE_MAX and np.isfinite(xs_scan).all()
+              and out[3].all())
+    checks(ok, f"stream_scan: {apart} of scale from the step loop")
+    phase("10 stream_scan", ok=ok, frames=n, first_run_s=first_s,
+          wall_ms=scan_s * 1e3, ms_per_frame=scan_s * 1e3 / n,
+          frames_per_s=n / scan_s,
+          trip_replays_per_frame=replays / n, init_replays_per_frame=1.0,
+          lm_trips_equal_step=bool(np.array_equal(
+              out[2].cpu().numpy(), trips)),
+          profiled_frames={"frames": STREAM_PROFILE_FRAMES, "trips": s_trips,
+                           "device_launches": s_launches,
+                           "host_syncs": s_syncs},
+          max_rel_apart_from_step=apart,
+          bitwise_equal_step=bool(np.array_equal(xs_scan, xs_step)),
+          mean_px=float(stream_px(w, xs_scan, fit_s.shape, kp).mean()))
+
+    # stream_pump: a sacrificial frame (the capture), stop, restart
+    fit_p = fitter()
+    pump = fit_p.make_pump()
+    t0 = time.perf_counter()
+    pump.start(x_init, fit_p.shape, 0.0)
+    pump.submit(kp[0])
+    pump.stop()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    pump.start(x_init, fit_p.shape, 0.0)
+    lat_p, xs_pump = [], []
+    for k in kp:
+        t0 = time.perf_counter()
+        xs_pump.append(pump.submit(k)[0])
+        lat_p.append((time.perf_counter() - t0) * 1e3)
+    pump.stop()
+    lat_p = np.asarray(lat_p)
+    xs_pump = np.stack(xs_pump)
+    apart_p = rel_apart(xs_pump, xs_step)
+    ok = bool(apart_p <= STREAM_AGREE_MAX and np.isfinite(xs_pump).all())
+    checks(ok, f"stream_pump: {apart_p} of scale from the step loop")
+    phase("10 stream_pump", ok=ok, frames=n, first_round_trip_ms=first_ms,
+          latency_ms=pct(lat_p), frames_per_s=1e3 / lat_p.mean(),
+          max_rel_apart_from_step=apart_p,
+          bitwise_equal_step=bool(np.array_equal(xs_pump, xs_step)))
+
+    # stream_hold
+    kp_h = kp[:STREAM_HOLD_FRAMES].copy()
+    held = np.arange(9, STREAM_HOLD_FRAMES, 10)
+    kp_h[held, :, 3] = 0.0
+    _, xs_h, _, solved_h = step_loop(fitter(), kp_h)
+    xs_hs, solved_hs, _, _, _ = fitter().replay(kp_h)
+    pump = fitter().make_pump()
+    pump.start(x_init, fit_p.shape, 0.0)
+    outs = [pump.submit(k) for k in kp_h]
+    pump.stop()
+    xs_hp = np.stack([o[0] for o in outs])
+    solved_hp = np.array([o[3] for o in outs])
+    res = {}
+    for name, xs_, sol in (("step", xs_h, solved_h), ("scan", xs_hs, solved_hs),
+                           ("pump", xs_hp, solved_hp)):
+        res[name] = bool(np.array_equal(np.flatnonzero(~sol), held)
+                         and all(np.array_equal(xs_[i], xs_[i - 1])
+                                 for i in held))
+    ok = all(res.values())
+    checks(ok, f"stream_hold: held frames {held.tolist()}: {res}")
+    phase("10 stream_hold", ok=ok, frames=STREAM_HOLD_FRAMES,
+          held=held.tolist(), held_equal_previous=res,
+          scan_rel_apart_from_step=rel_apart(xs_hs, xs_h),
+          pump_rel_apart_from_step=rel_apart(xs_hp, xs_h))
+
+    # stream_f64
+    fit64 = fitter(f64)
+    lat64, xs64, trips64, _ = step_loop(fit64, kp)
+    px64 = stream_px(w, xs64, fit64.shape, kp)
+    gap = abs(float(px32.mean()) - float(px64.mean()))
+    flips = [[int(i), float(px32[i]), float(px64[i])]
+             for i in np.nonzero(np.abs(px32 - px64) > SINGLE_FLIP_PX)[0]]
+    ok = bool(np.isfinite(px64).all() and gap <= STREAM_F64_GAP_MAX_PX)
+    checks(ok, f"stream_f64: f32 {px32.mean()} px against f64 {px64.mean()}")
+    phase("10 stream_f64", ok=ok, frames=n, mean_px=float(px32.mean()),
+          f64_mean_px=float(px64.mean()), gap_px=gap, basin_flips=flips,
+          f64_latency_ms=pct(lat64),
+          f64_lm_trips_per_frame=float(trips64.mean()),
+          max_rel_apart=rel_apart(xs_step, xs64))
+
+
 def main(argv):
     import torch
 
@@ -1616,8 +2006,12 @@ def main(argv):
         w, frame_params, shp, verts, fit_s, checks)
     # 9. the single-frame path
     single_phases(w, dev, checks)
-    # 8. the port's CLIs, K1, K2 and K3 through their product entry points
+    # 10. the streaming path, from stage 1's shape
+    stream_phases(w, st1.shape, dev, checks)
+    # 8. the port's CLIs, K1, K2 and K3 through their product entry points;
+    # the library's fit_video
     cli_phases(checks)
+    api_phase(w, dev, checks)
     fit_profile(w, dev, checks)
 
     foreign = sorted(m for m in sys.modules

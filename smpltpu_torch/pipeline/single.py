@@ -23,16 +23,17 @@ Framework extensions, as in the JAX package: --opt-shape, --use-gmm,
 root-yaw hypotheses, the blind init and, with the GMM, a start per
 component mean; the lowest-cost start is kept per frame),
 --adaptive-start / --adaptive-thresh (multi-start only the frames left
-above the threshold), --no-orient-init, --freeze-scale, --frame-chunk,
---profile (torch.profiler traces under out_dir/profile), --metrics-jsonl.
+above the threshold), --adaptive-propagate (then walk the neighbours'
+optima along the sequence through the streaming scan), --no-orient-init,
+--freeze-scale, --frame-chunk, --profile (torch.profiler traces under
+out_dir/profile), --metrics-jsonl.
 
 Differences from the JAX CLI:
   * a warm-up call runs one LM trip of the solve it precedes (the JAX CLI
     runs the whole solve once to compile it), so ``time_ms`` excludes the
     kernels' build and the fit is not run twice;
-  * refused with a message naming their ROADMAP.md item: --mesh N > 1
-    (M14; --mesh 0 runs on one device and says so) and
-    --adaptive-propagate (M12);
+  * refused with a message naming its ROADMAP.md item: --mesh N > 1
+    (M14; --mesh 0 runs on one device and says so);
   * ``--jax-render`` has no fallback to another rasterizer.
 """
 
@@ -145,9 +146,6 @@ def refused(opts) -> str | None:
         return (f"--mesh {opts['mesh']}: the multi-device path is not "
                 "ported yet (ROADMAP.md, M14); --mesh 0 or 1 runs on one "
                 "device")
-    if opts["adaptive_propagate"]:
-        return ("--adaptive-propagate: the streaming scan it runs is not "
-                "ported yet (ROADMAP.md, M12)")
     return None
 
 
@@ -301,7 +299,8 @@ def _main_adaptive(opts, ds, prob, kp, fitter_of, sync, dtype) -> int:
         return fit_adaptive(prob, kp, opts["max_iters"],
                             px_thresh=opts["adaptive_thresh"],
                             fitter=fitter, dtype=dtype,
-                            orient=opts["orient_init"])
+                            orient=opts["orient_init"],
+                            propagate=opts["adaptive_propagate"])
     timer = StageTimer()
     run(fitter_of(1))               # warm-up: one LM trip a phase
     sync()

@@ -1,8 +1,8 @@
 """Solvers (port of ``smpltpu/solve``): the batched LM with its exact trust
 region and the single-frame fit on it, the multi-frame LM, its exact
 block-tridiagonal solve, the chunked window fit, the fused two-stage
-pipeline and the data-driven frame initialization with its multi-start
-fits."""
+pipeline, the data-driven frame initialization with its multi-start
+fits, and the online (streaming) fit over a CUDA graph of one LM trip."""
 
 from smpltpu_torch.solve.init import (  # noqa: F401
     AdaptiveResult,
@@ -28,6 +28,14 @@ from smpltpu_torch.solve.multi_frame import (  # noqa: F401
     build_chunked_window_fit,
     build_multi_fitter,
     fit_multi_frame,
+)
+from smpltpu_torch.solve.online import (  # noqa: F401
+    OnlineConfig,
+    OnlineFitter,
+    OnlineGraph,
+    OnlinePump,
+    build_online_scan,
+    build_online_step,
 )
 from smpltpu_torch.solve.single_frame import (  # noqa: F401
     SingleFrameProblem,

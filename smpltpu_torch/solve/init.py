@@ -21,16 +21,19 @@ The multi-start half fits through the single-frame solver:
 ``make_start_set`` (the data-driven init under root-yaw hypotheses, the
 reference's blind init and optional pose seeds, one row per start),
 ``best_of_starts``, ``build_px_eval`` and ``fit_adaptive`` (fit every
-frame once, multi-start only the frames left above a pixel threshold).
-``fit_adaptive(propagate=True)`` needs the streaming scan, which is not
-ported yet (ROADMAP.md, M12), and is refused.
+frame once, multi-start only the frames left above a pixel threshold
+and, with ``propagate=True``, walk the neighbours' optima along the
+sequence through the streaming scan of ``solve/online.py``).
 """
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
+from smpltpu_torch.constants import HUBER_DELTA
 from smpltpu_torch.energy.params import frame_param_layout, init_frame_params
 from smpltpu_torch.energy.reproj import SkeletonSpec, project, skeleton_joints_cam
 
@@ -724,6 +727,7 @@ def fit_adaptive(
     fitter=None,
     orient: bool = True,
     propagate: bool = False,
+    propagate_iters: int = 30,
 ) -> AdaptiveResult:
     """Adaptive multi-start single-frame fitting, on the problem's device:
 
@@ -732,20 +736,23 @@ def fit_adaptive(
        ``px_thresh``: one smaller batch over the other start hypotheses
        (the extra ``yaws`` around the data init, the reference's blind
        init and, with a GMM prior, one start per component mean), keeping
-       each hard frame's lowest-cost result over all its starts.
+       each hard frame's lowest-cost result over all its starts;
+    3. with ``propagate=True``, for the frames still above the threshold:
+       warm-started solves along the sequence (the causal replay of
+       ``solve/online.py::build_online_scan`` with the tether weight zero,
+       so each frame solves the phase-1 objective from its neighbour's
+       optimum), forward and then, while hard frames remain, over the
+       reversed sequence; a frame adopts the propagated result only where
+       both its pixel error and its cost strictly improve. Pose-only: an
+       ``opt_shape`` problem skips it with a warning.
 
-    The reference's phase 3 (``propagate=True``, warm-started solves along
-    the sequence) needs the streaming scan, not ported yet: it raises
-    NotImplementedError naming ROADMAP.md M12. ``fitter``: a prebuilt
-    ``build_fitter`` result to reuse;
-    default one of (max_iters, lm_cfg, chunk) in ``dtype`` (float32)."""
+    Unlike the reference, phase 3 takes ``huber_delta`` from ``lm_cfg``
+    where one is given, so that the costs that decide adoption are on one
+    scale (with the default config the two agree). ``fitter``: a prebuilt
+    ``build_fitter`` result to reuse; default one of (max_iters, lm_cfg,
+    chunk) in ``dtype`` (float32)."""
     from smpltpu_torch.solve.single_frame import build_fitter
 
-    if propagate:
-        raise NotImplementedError(
-            "fit_adaptive(propagate=True) needs the streaming scan "
-            "(solve/online.py::build_online_scan), which is not ported yet "
-            "(ROADMAP.md, M12)")
     device = prob.spec.base_offsets.device
     dtype = torch.float32 if dtype is None else dtype
     kp_batch = np.asarray(kp_batch)
@@ -801,7 +808,71 @@ def fit_adaptive(
         iters[sel] = iters_b[flat]
         hist[sel] = hist_b[flat]
         escalated[sel] = True
+
+    if propagate and prob.opt_shape:
+        print("[WARN] fit_adaptive: propagate is pose-only (the streaming "
+              "scan it reuses locks shape) — skipping phase P for this "
+              "--opt-shape problem", file=sys.stderr)
+    if propagate and not prob.opt_shape and (px > px_thresh).any():
+        scan = _propagate_scan(prob, propagate_iters, device, dtype,
+                               HUBER_DELTA if lm_cfg is None
+                               else lm_cfg.huber_delta)
+        shape0 = torch.zeros(prob.n_shapes, dtype=dtype, device=device)
+
+        def one_pass(order):
+            kp_o = t(kp_batch[order])
+            xs, costs_p, iters_p, _solved, conv_p = scan(
+                t(x[order[0]]), shape0, kp_o, 1.0)
+            inv = np.empty_like(order)
+            inv[order] = np.arange(order.size)
+            return tuple(_numpy(a)[inv] for a in (
+                xs, costs_p, iters_p, conv_p, px_eval(xs, kp_o)))
+
+        for order in (np.arange(f_dim), np.arange(f_dim)[::-1]):
+            still = px > px_thresh
+            if not still.any():
+                break
+            x_p, c_p, i_p, cv_p, px_p = one_pass(order)
+            # adopt only where BOTH the pixel error and the (same-objective)
+            # cost strictly improve: phase A's result is never regressed
+            sel_p = still & (px_p < px) & (c_p < cost)
+            if sel_p.any():
+                x[sel_p] = x_p[sel_p]
+                cost[sel_p] = c_p[sel_p]
+                px[sel_p] = px_p[sel_p]
+                iters[sel_p] = i_p[sel_p]
+                conv[sel_p] = cv_p[sel_p]
+                escalated[sel_p] = True
     return AdaptiveResult(x, cost, px, conv, iters, hist, hard, escalated)
+
+
+# phase P's scans, one per (problem, trips, device, dtype, Huber scale);
+# each value holds its problem, so a recycled id() never hits a stale scan
+_PROP_SCAN_CACHE: dict = {}
+_PROP_SCAN_CACHE_MAX = 16
+
+
+def _propagate_scan(prob, max_iters: int, device, dtype, huber_delta: float):
+    """The causal replay of phase P: ``build_online_scan`` with
+    lambda_temporal = 0 (the tether rows vanish, residual and Jacobian), so
+    each scanned frame solves exactly the phase-1 objective (same priors,
+    frozen joints, scale bounds and ``freeze_scale``); only the warm start
+    is temporal."""
+    key = (id(prob), int(max_iters), str(device), dtype, float(huber_delta))
+    hit = _PROP_SCAN_CACHE.get(key)
+    if hit is not None:
+        return hit[1]
+    from smpltpu_torch.solve.online import OnlineConfig, build_online_scan
+
+    cfg = OnlineConfig(beta_pose=prob.beta_pose, lambda_temporal=0.0,
+                       max_iters=max_iters, freeze_scale=prob.freeze_scale,
+                       huber_delta=huber_delta)
+    fn = build_online_scan(prob.spec, prob.cam, cfg, prob.n_joints,
+                           gmm=prob.gmm, device=device, dtype=dtype)
+    if len(_PROP_SCAN_CACHE) >= _PROP_SCAN_CACHE_MAX:
+        _PROP_SCAN_CACHE.pop(next(iter(_PROP_SCAN_CACHE)))
+    _PROP_SCAN_CACHE[key] = (prob, fn)
+    return fn
 
 
 def best_of_starts(states, f_dim: int, s_dim: int):

@@ -40,6 +40,7 @@ SLICE_MODULES = [
     "smpltpu_torch.solve.tridiag",
     "smpltpu_torch.solve.init",
     "smpltpu_torch.solve.single_frame",
+    "smpltpu_torch.solve.online",
     "smpltpu_torch.io",
     "smpltpu_torch.io.smpl_npz",
     "smpltpu_torch.io.gmm",
@@ -62,6 +63,9 @@ SLICE_MODULES = [
     "smpltpu_torch.pipeline.common",
     "smpltpu_torch.pipeline.multi",
     "smpltpu_torch.pipeline.single",
+    "smpltpu_torch.pipeline.stream",
+    "smpltpu_torch.pipeline.api",
+    "smpltpu_torch.pipeline.video",
 ]
 # every source file of the port, and the card check
 PORT_FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(

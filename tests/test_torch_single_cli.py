@@ -130,7 +130,7 @@ def test_parse_args_matches_reference(argv, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--mesh", "2"], "M14"),
-    (["--adaptive-propagate"], "M12"),
+    (["--adaptive-propagate", "--mesh", "8"], "M14"),
 ])
 def test_single_cli_refuses_flags_not_ported(tmp_path, capsys, flags, item):
     out = str(tmp_path / "o")
