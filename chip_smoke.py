@@ -93,7 +93,22 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    stream CLI's latency line) and kernel launches. ``8 api_fit_video``:
    the library's ``fit_video(mode="stream", want_verts=True)`` on phase
    10's frames (K2 in its evaluation).
-10. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+10. the multi-device path (``smpltpu_torch/parallel``), phases ``11 *``
+   (``mesh_phases``), one rank over NCCL on the one card (the JAX CLI's
+   ``--mesh 2`` on a one-device host): ``mesh_window`` (window DP of phase
+   5's 67 windows with K1, bitwise equal to the unsharded batched fit),
+   ``mesh_lm`` (the frame-sharded LM as stage 1 on the 100 anchors,
+   MESH_LM_TRIPS trips: wall time, device launches, host syncs and NCCL
+   calls a trip, two trips under sync-debug "error", its anchors' px
+   against phase 5's stage 1, and at MESH_F64_DEPTH trips float32 against
+   float64), ``mesh_frame``
+   (frame DP of phase 9's 128 frames, bitwise equal to phase 9's fit),
+   ``graft_entry``
+   (``smpltpu_torch/graft_entry.py::entry()`` with K1 and K2, the host's
+   launch floor against ``utils/roofline.py``), and ``cli_mesh*`` (the
+   multi and single CLIs with ``--mesh 2``, ``CLI_MESH_RUNS``: each mean
+   held to the CPU run's, every K3 launch pixel-exact).
+11. one more fit under torch.profiler, at a fifth of the depth (30 + 12
    LM iterations: the profiler takes half a minute to digest a full
    fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
    launches, the idle share; last, so that the profiler's cost touches
@@ -198,8 +213,25 @@ CLI_STREAM_RUNS = (
 CLI_STREAM_GAP_MAX_PX, CLI_STREAM_ROWS_AGREE_PX = 0.05, 1e-4
 H_R, W_R = 1280, 720          # render size: the bench camera at full size
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM peaks (NVIDIA data sheet)
-FP32_FLOPS_PER_S = 67e12
+# phase 11: the multi-device path on one rank; cli_mesh's argvs with the
+# port's CPU run's log.csv mean (smpltpu_torch.pipeline.multi / single
+# .main(argv, device="cpu"), two gloo ranks, the full-width model on video1)
+MESH_PROFILE_TRIPS = 3         # the profiled and sync-counted LM runs
+# phase 11's cuts of depth (PERF.md section 4): the sharded LM runs 110 of
+# stage 1's 150 trips (it converges at trip 101 on this workload, and a
+# converged state is frozen), its float64 twin 20 beside float32's 20
+MESH_LM_TRIPS, MESH_F64_DEPTH = 110, 20
+MESH_LM_GAP_MAX_PX = 0.1       # mesh_lm against phase 5's stage 1 and f64
+CLI_MESH_RUNS = (
+    ("cli_mesh", "multi", ["20", "60", "10", "20", "5", "5.0", "25.0", "3.0",
+                           "--s2-iters", "60", "--batched-windows",
+                           "--data-init", "--init-from-anchors", "--linear",
+                           "pcg_kernel", "--jax-render", "--mesh", "2"],
+     2.327094779564784),
+    ("cli_mesh_single", "single", CLI_SINGLE_ARGV + ["--mesh", "2"],
+     8.840150977625992),
+)
+CLI_MESH_GAP_MAX_PX = 0.05
 # phase 3's K1 cases: (label, windows W, frames F, row block P, shapes nS,
 # rtol, forced cluster size or None for the plan's own choice)
 K1_SWEEP = (
@@ -233,8 +265,9 @@ K1_LAYOUT_SHAPES = ((67, 20, 76), (1, 100, 76), (3, 33, 76), (1, 150, 76),
 
 def bound(n_bytes, n_flops):
     """(bound_ms, bound_by): the least time for the bytes and the float32
-    operations at the card's peaks."""
-    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS_PER_S
+    operations at the card's peaks (``smpltpu_torch/utils/roofline.py``)."""
+    from smpltpu_torch.utils.roofline import PEAK_F32_FLOPS, PEAK_HBM_BPS
+    t_b, t_o = n_bytes / PEAK_HBM_BPS, n_flops / PEAK_F32_FLOPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -1477,6 +1510,7 @@ def single_phases(w, dev, checks):
           f64_gap_px=gap, f64_fit_s=fit64_s,
           f64_lm_trips=int(st64.iters_run.max()), basin_flips=flips,
           peak_gib=peak_gib)
+    single_ref = (prob, x0, kp_t, st)
 
     # single_chol_eigh, float64
     ste, eigh_s = timed(lambda: fitter(
@@ -1538,6 +1572,7 @@ def single_phases(w, dev, checks):
           unchunked_lm_trips=int(stu.iters_run.max()),
           unchunked_mean_px=float(frame_px(prob, stu.x, w["kp"]).mean()),
           chunked_mean_px=float(frame_px(prob, stc.x, w["kp"]).mean()))
+    return single_ref
 
 
 def stream_px(w, xs, shp, kp):
@@ -1802,6 +1837,225 @@ def stream_phases(w, shp, dev, checks):
           f64_lm_trips_per_frame=float(trips64.mean()),
           max_rel_apart=rel_apart(xs_step, xs64))
 
+def mesh_phases(w, st1, st2, single_ref, dev, checks):
+    """Phase 11, the multi-device path (``smpltpu_torch/parallel``) on one
+    rank over NCCL (``frames_mesh(2, "cuda")`` on one card: the JAX CLI's
+    one-device mesh), full width, bench.py's workload.
+
+    ``mesh_window``: window DP of phase 5's 67 windows (their starts
+    interpolated from its stage-1 anchors, its stage-1 shape, K1), bitwise
+    equal to the unsharded batched fit of the same windows. ``mesh_lm``:
+    the sharded LM as stage 1 on the 100 anchors in float32 for
+    MESH_LM_TRIPS trips, timed; its device launches, host syncs and NCCL
+    calls a trip (1- and MESH_PROFILE_TRIPS-trip runs under the profiler
+    and sync-debug "warn"), a two-trip fit under sync-debug "error"; its
+    anchors' full-batch px against phase 5's stage-1 optimum, and at
+    MESH_F64_DEPTH trips against its own float64 run's. ``mesh_frame``:
+    frame DP of phase 9's 128 frames, bitwise equal to phase 9's fit. ``graft_entry``: ``graft_entry.entry()`` on the card
+    (K1, K2) and the host's launch floor against
+    ``utils/roofline.py::DISPATCH_FLOOR_S``. The launch counts are set to
+    0 before each run and read after it."""
+    import copy
+    import torch
+    from smpltpu_torch.constants import init_root_rotation
+    from smpltpu_torch.energy import make_skeleton_spec
+    from smpltpu_torch.energy.params import init_frame_params
+    from smpltpu_torch.ops import LAUNCHES
+    from smpltpu_torch.parallel import (
+        build_sharded_lm_fitter,
+        frames_mesh,
+        sharded_frame_fit,
+        sharded_window_fit,
+    )
+    from smpltpu_torch.solve import MultiFrameConfig, build_multi_fitter
+    from smpltpu_torch.solve.single_frame import build_fitter
+    from smpltpu_torch.solve.two_stage import interp_tables
+    from smpltpu_torch.utils import roofline
+
+    f32, f64 = torch.float32, torch.float64
+    mesh = frames_mesh(2, dev)
+    checks(mesh.size == 1 and mesh.device == dev,
+           f"one card: a mesh of {mesh.size} ranks on {mesh.device}")
+    common = dict(beta_pose=5.0, lambda_temporal=3.0, linear="pcg_kernel",
+                  cg_iters=CG_ITERS, fused_cost=True)
+    cfg1 = MultiFrameConfig(beta_shape=25.0, max_iters=S1_ITERS, **common)
+    cfg2 = MultiFrameConfig(beta_shape=1e5, max_iters=S2_ITERS, **common)
+
+    # mesh_window: stage 2's windows from phase 5's anchors, as
+    # solve/two_stage.py builds them
+    n, anchor_idx = w["n_frames"], w["anchor_idx"]
+    seg, hi, tt = interp_tables(anchor_idx, n)
+    tt = torch.as_tensor(tt, dtype=f32, device=dev)[:, None]
+    ap = st1.params
+    poses = (1.0 - tt) * ap[torch.as_tensor(seg, device=dev)] + tt * ap[
+        torch.as_tensor(hi, device=dev)]
+    win_f = np.asarray(w["starts"])[:, None] + np.arange(WSIZE)[None]
+    valid = torch.as_tensor(win_f < n, device=dev)[..., None]
+    p0w = torch.where(valid, poses[torch.as_tensor(np.clip(win_f, 0, n - 1),
+                                                   device=dev)],
+                      init_frame_params(device=dev, dtype=f32))
+    kpw, r0w, vw = w["args"][4:]
+    n_win = len(w["starts"])
+    fit2 = build_multi_fitter(w["spec"], w["cam"], cfg2, 10, device=dev,
+                              dtype=f32)
+    ref, ref_s = timed(lambda: fit2(p0w, st1.shape, kpw, r0w, vw))
+    LAUNCHES.clear()
+    calls0 = dict(mesh.calls)
+    got, dp_s = timed(lambda: sharded_window_fit(
+        mesh, fit2, p0w, st1.shape.expand(n_win, -1), kpw, r0w, vw))
+    k1_window = LAUNCHES["arrow_pcg"]
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, ref))
+    same_as_phase5 = all(bool(torch.equal(a, b)) for a, b in zip(got, st2))
+    trips2 = int(got.iters_run.max())
+    ok = bool(bitwise and k1_window == trips2 and trips2 > 0)
+    checks(ok, f"mesh_window: bitwise {bitwise}, K1 {k1_window} launches, "
+               f"{trips2} trips")
+    phase("11 mesh_window", ok=ok, ranks=mesh.size, windows=n_win,
+          bitwise_vs_unsharded=bitwise, bitwise_vs_phase5_stage2=same_as_phase5,
+          k1_launches=k1_window, lm_trips=trips2, dp_s=dp_s,
+          unsharded_s=ref_s, nccl_calls={k: v - calls0.get(k, 0)
+                                         for k, v in mesh.calls.items()})
+    del ref, got
+
+    # mesh_lm: the sharded LM on the 100 anchors
+    a_args = w["args"][:4]
+
+    def lm(k):
+        return build_sharded_lm_fitter(mesh, w["spec"], w["cam"],
+                                       cfg1._replace(max_iters=k), 10)
+    lm(1)(*a_args)
+    counts = {}
+    for k in (1, MESH_PROFILE_TRIPS):
+        c0 = mesh.calls["all_reduce"] + mesh.calls["all_gather"]
+        fit_k = lm(k)
+        _, launches, syncs = launches_and_syncs(lambda: fit_k(*a_args))
+        counts[k] = (launches, syncs,
+                     mesh.calls["all_reduce"] + mesh.calls["all_gather"] - c0)
+    (l1, s1, n1), (lk, sk, nk) = counts[1], counts[MESH_PROFILE_TRIPS]
+    per = MESH_PROFILE_TRIPS - 1
+    two = lm(2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        two(*a_args)
+        sync_error = None
+    except RuntimeError as e:
+        sync_error = str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    fit_full = lm(MESH_LM_TRIPS)
+    c0 = mesh.calls["all_reduce"]
+    res, lm_s = timed(lambda: fit_full(*a_args))
+    nccl_full = mesh.calls["all_reduce"] - c0
+    kp_a = w["kp"][anchor_idx]
+    anchors = {**w, "kp": kp_a}
+    px = full_batch_residual(anchors, res.params, res.shape)
+    px5 = full_batch_residual(anchors, st1.params, st1.shape)
+    # the float64 twin at MESH_F64_DEPTH trips, beside float32's at as many
+    model64 = copy.deepcopy(w["model"]).to(f64)
+    cam64 = type(w["cam"])(*(c.to(f64) for c in w["cam"]))
+    spec64 = make_skeleton_spec(model64, init_root_rotation(), with_shape=True)
+    res64, lm64_s = timed(lambda: build_sharded_lm_fitter(
+        mesh, spec64, cam64, cfg1._replace(max_iters=MESH_F64_DEPTH), 10,
+        dtype=f64)(*(a.double() for a in a_args)))
+    res32 = lm(MESH_F64_DEPTH)(*a_args)
+    anchors64 = {**anchors, "spec": spec64, "cam": cam64}
+    px64 = full_batch_residual(anchors64, res64.params, res64.shape)
+    px32 = full_batch_residual(anchors, res32.params, res32.shape)
+    gap5, gap64 = abs(px - px5), abs(px32 - px64)
+    ok = bool(np.isfinite(px) and sync_error is None and sk == s1
+              and gap5 <= MESH_LM_GAP_MAX_PX and gap64 <= MESH_LM_GAP_MAX_PX)
+    checks(ok, f"mesh_lm: {px} px against phase 5's {px5} and f64's {px64}, "
+               f"sync under 'error': {sync_error}, syncs {counts}")
+    phase("11 mesh_lm", ok=ok, ranks=mesh.size, anchors=len(anchor_idx),
+          lm_trips=MESH_LM_TRIPS, cg_iters=CG_ITERS, fit_s=lm_s,
+          ms_per_trip=lm_s / MESH_LM_TRIPS * 1e3,
+          device_launches_per_trip=(lk - l1) / per,
+          host_syncs_per_trip=(sk - s1) / per,
+          nccl_calls_per_trip=(nk - n1) / per,
+          nccl_all_reduces_per_fit=nccl_full,
+          profiled_runs={str(k): list(v) for k, v in counts.items()},
+          two_trips_under_sync_error=sync_error or "clean",
+          converged=bool(res.converged), lm_trips_unconverged=int(
+              res.iters_run), accepted=int(res.n_accepted),
+          anchor_px=px, phase5_stage1_px=px5, gap_to_phase5_px=gap5,
+          f64_lm_trips=MESH_F64_DEPTH, f32_anchor_px_there=px32,
+          f64_anchor_px=px64, f64_gap_px=gap64, f64_fit_s=lm64_s,
+          cost=float(res.cost), phase5_stage1_cost=float(st1.cost))
+    del res64, res32, model64
+
+    # mesh_frame: phase 9's frames over the mesh
+    prob, x0, kp_t, st9 = single_ref
+    fitter = build_fitter(prob, SINGLE_ITERS, device=dev, dtype=f32)
+    LAUNCHES.clear()
+    got, frame_s = timed(lambda: sharded_frame_fit(mesh, fitter, x0, kp_t))
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, st9))
+    checks(bitwise, "mesh_frame: not bitwise equal to phase 9's fit")
+    phase("11 mesh_frame", ok=bitwise, ranks=mesh.size, frames=len(x0),
+          bitwise_vs_phase9=bitwise, fit_s=frame_s,
+          launches={k: v for k, v in LAUNCHES.items() if "@" not in k})
+
+    # graft_entry, and the host's launch floor
+    from smpltpu_torch import graft_entry
+    fn, args = graft_entry.entry()
+    LAUNCHES.clear()
+    out, entry_s = timed(lambda: fn(*args))
+    entry_launches = {k: v for k, v in LAUNCHES.items() if "@" not in k}
+    x = torch.zeros(1, device=dev)
+    for _ in range(100):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        x.add_(1.0)
+    floor_s = (time.perf_counter() - t0) / 1e4
+    torch.cuda.synchronize()
+    ok = bool([tuple(o.shape) for o in out] == [(4, 6, 76), (4,), (4, 10),
+                                                 (4, 1024, 3)]
+              and all(bool(torch.isfinite(o).all()) for o in out)
+              and entry_launches.get("arrow_pcg", 0) > 0
+              and entry_launches.get("lbs", 0) == 1
+              and roofline.DISPATCH_FLOOR_S / 3 <= floor_s
+              <= 3 * roofline.DISPATCH_FLOOR_S)
+    checks(ok, f"graft_entry: launches {entry_launches}, launch floor "
+               f"{floor_s} s against {roofline.DISPATCH_FLOOR_S}")
+    phase("11 graft_entry", ok=ok, wall_s=entry_s, launches=entry_launches,
+          launch_floor_us=floor_s * 1e6,
+          dispatch_floor_us=roofline.DISPATCH_FLOOR_S * 1e6)
+    mesh.close()
+    cli_mesh_phases(checks)
+
+
+def cli_mesh_phases(checks):
+    """``11 cli_mesh*``: the multi and single CLIs with ``--mesh 2`` on one
+    card (``CLI_MESH_RUNS``: one rank over NCCL; the sharded stage 1 and
+    window DP with K1, frame DP), the full-width model on video1, each
+    log.csv mean held to the port's CPU run of the same argv, every K3
+    launch pixel-exact against ``rasterize_torch``."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    kps = os.path.join(here, "data", "keypoints", "video1")
+    frames_dir = os.path.join(here, "data", "frames_annotated", "video1")
+    root = os.path.join(here, "build", "chip_smoke_cli_mesh")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    for label, cli, argv, cpu_mean in CLI_MESH_RUNS:
+        res, frames, errs = cli_run(label, ["synthetic", kps, frames_dir]
+                                    + argv, root, checks, k3_check=True,
+                                    cli=cli)
+        if res["rc"] == 0:
+            gap = abs(res["mean_px"] - cpu_mean)
+            need = ("arrow_pcg", "lbs", "raster") if cli == "multi" else (
+                "lbs", "raster")
+            ok = bool(gap <= CLI_MESH_GAP_MAX_PX and len(frames) > 0
+                      and all(res["launches"].get(k, 0) > 0 for k in need))
+            checks(ok, f"{label}: mean {res['mean_px']} px against the "
+                       f"CPU's {cpu_mean}, {res}")
+            res.update(ok=ok, cpu_mean_px=cpu_mean, gap_px=gap)
+        phase(f"11 {label}", **res)
+    shutil.rmtree(root, ignore_errors=True)
+
 
 def main(argv):
     import torch
@@ -2005,13 +2259,15 @@ def main(argv):
     k3, k3_launches, k3_setup_launches = render_phase(
         w, frame_params, shp, verts, fit_s, checks)
     # 9. the single-frame path
-    single_phases(w, dev, checks)
+    single_ref = single_phases(w, dev, checks)
     # 10. the streaming path, from stage 1's shape
     stream_phases(w, st1.shape, dev, checks)
     # 8. the port's CLIs, K1, K2 and K3 through their product entry points;
     # the library's fit_video
     cli_phases(checks)
     api_phase(w, dev, checks)
+    # 11. the multi-device path on one rank over NCCL
+    mesh_phases(w, st1, st2, single_ref, dev, checks)
     fit_profile(w, dev, checks)
 
     foreign = sorted(m for m in sys.modules

@@ -40,7 +40,17 @@ warning and the sequential stages), --window-chunk N, --resume,
 --metrics-jsonl, --profile (torch.profiler traces under out_dir/profile),
 --jax-render, --pose-prior, --linear tridiag|pcg|pcg_block|pcg_kernel,
 --cg-rtol, --multi-start (every frame seeded by its best-of-starts
-single-frame fit), --data-init, --orient-init, --s2-iters.
+single-frame fit), --data-init, --orient-init, --s2-iters, --mesh N.
+
+``--mesh N`` (N > 1; 0 means every visible card, one rank on the CPU)
+takes the reference's sharded route (``parallel/sharded.py``): stage 1 is
+the frame-sharded LM on the anchors, padded to a multiple of N with
+frame_valid = 0 rows, and the batched stage 2 is window data parallelism,
+padded with all-invalid windows (``--window-chunk`` composes with it). On
+CUDA it runs ``min(N, cards)`` ranks over NCCL, one process a card; on the
+CPU N ranks over gloo, one process each (``parallel/launch.py``); with
+one card it is one rank in this process. Rank 0 does the evaluation, the
+render and every write.
 
 Differences from the JAX CLI:
   * the fused path is timed after a warm-up call, as the sequential
@@ -50,9 +60,8 @@ Differences from the JAX CLI:
     CLI's run the whole solve, which XLA compiles for its iteration
     count): one trip launches every kernel and library call of the solve,
     so the fit is not run twice;
-  * flags whose code is not ported exit with a message naming their
-    ROADMAP.md item: --mesh N > 1 (M14; --mesh 0 runs on one device and
-    says so), --linear cr and --ckpt-backend orbax (not ported);
+  * --linear cr and --ckpt-backend orbax are not ported: the command
+    exits with a message naming their ROADMAP.md entry;
   * ``--jax-render`` has no fallback to another rasterizer;
   * ``--window-chunk`` with ``--cg-rtol`` gives each window the result of
     the unchunked batch (the port's PCG, plain and K1, ends each window's
@@ -62,6 +71,7 @@ Differences from the JAX CLI:
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 
@@ -71,6 +81,12 @@ import torch
 from smpltpu_torch.constants import init_root_rotation
 from smpltpu_torch.energy import make_skeleton_spec
 from smpltpu_torch.energy.params import init_frame_params
+from smpltpu_torch.parallel import (
+    build_sharded_lm_fitter,
+    mesh_size,
+    sharded_window_fit,
+)
+from smpltpu_torch.parallel.launch import mesh_main
 from smpltpu_torch.pipeline.common import (
     StageTimer,
     append_log,
@@ -194,11 +210,7 @@ def parse_args(argv):
 
 
 def refused(opts) -> str | None:
-    """Why the port cannot run these options yet, or None."""
-    if opts["mesh"] > 1:
-        return (f"--mesh {opts['mesh']}: the multi-device path is not "
-                "ported yet (ROADMAP.md, M14); --mesh 0 or 1 runs on one "
-                "device")
+    """Why the port cannot run these options, or None."""
     if opts["linear"] == "cr":
         return ("--linear cr is not ported (ROADMAP.md, 'Do not port'); "
                 "use tridiag, pcg, pcg_block or pcg_kernel")
@@ -214,7 +226,11 @@ def _pad_window(arr, start, end, wsize):
     return out
 
 
-def main(argv=None, *, device="cuda") -> int:
+def main(argv=None, *, device="cuda", mesh=None) -> int:
+    """The CLI on ``device``. ``mesh``: run as this rank of a mesh (the
+    launcher's workers pass theirs; tests may run ranks as threads); else
+    ``--mesh N`` makes one, starting a process a rank when it has more
+    than one."""
     argv = sys.argv[1:] if argv is None else argv
     opts = parse_args(argv)
     if opts is None:
@@ -231,7 +247,18 @@ def main(argv=None, *, device="cuda") -> int:
               "CPU from Python)", file=sys.stderr)
         return 1
     os.makedirs(opts["out_dir"], exist_ok=True)
+    # --mesh 0: every visible card (one rank on the CPU)
+    mesh_n = opts["mesh"] if opts["mesh"] > 0 else mesh_size(0, dev)
+    return mesh_main(lambda m: _run(opts, dev if m is None else m.device,
+                                    mesh_n, m),
+                     __spec__.name, argv, mesh_n, device, opts["out_dir"],
+                     mesh)
 
+
+def _run(opts, dev, mesh_n, mesh) -> int:
+    """The run, on ``mesh``'s rank when there is one (then ranks other than
+    0 leave after the last sharded call)."""
+    rank = 0 if mesh is None else mesh.rank
     dtype = torch.float32
     try:
         ds = load_dataset(opts["smpl_path"], opts["kps_folder"],
@@ -268,10 +295,8 @@ def main(argv=None, *, device="cuda") -> int:
           f"[INFO] window / overlap: {opts['wsize']} / {opts['overlap']}\n"
           f"[INFO] beta_pose={opts['beta_pose']}  beta_shape={opts['beta_shape']}"
           f"  lambda_temp={opts['lambda_t']}")
-    n_visible = torch.cuda.device_count() if dev.type == "cuda" else 1
-    print(f"[INFO] devices visible: {n_visible}  mesh size: 1"
-          + ("  (--mesh 0: one device until the multi-device path is "
-             "ported, ROADMAP.md M14)" if opts["mesh"] == 0 else ""))
+    print(f"[INFO] devices visible: {mesh_size(0, dev)}  mesh size: "
+          f"{mesh_n if mesh is not None else 1}")
     if opts["window_chunk"] > 0 and not opts["batched_windows"]:
         print("[WARN] --window-chunk only applies with "
               "--batched-windows; ignored on the sequential path",
@@ -325,8 +350,10 @@ def main(argv=None, *, device="cuda") -> int:
                  (n_frames, 1, 1))
     shape_w = np.zeros(model.num_shapes, dtype=np.float32)
 
-    metrics = MetricsLogger(jsonl_path=opts["metrics_jsonl"])
-    profile_dir = os.path.join(opts["out_dir"], "profile") if opts["profile"] else None
+    metrics = MetricsLogger(jsonl_path=opts["metrics_jsonl"] if rank == 0
+                            else None)
+    profile_dir = (os.path.join(opts["out_dir"], "profile")
+                   if opts["profile"] and rank == 0 else None)
 
     ckpt_base = os.path.join(opts["out_dir"], "checkpoint_multi")
     ck = None
@@ -367,7 +394,7 @@ def main(argv=None, *, device="cuda") -> int:
                                 cg_rtol=opts["cg_rtol"])
         n_a = len(anchor_idx)
         fused_active = (opts["fused_stages"] and opts["batched_windows"]
-                        and opts["init_from_anchors"]
+                        and opts["init_from_anchors"] and mesh is None
                         and opts["window_chunk"] == 0)
         if opts["fused_stages"] and not fused_active:
             print("[WARN] --fused-stages needs --batched-windows "
@@ -379,6 +406,29 @@ def main(argv=None, *, device="cuda") -> int:
             # call (stage-2 section); --init-from-anchors means no anchor
             # r0 write-back, so r0_fit is just a snapshot
             r0_fit = r0.copy()
+        elif mesh is not None:
+            # frames sharded over the mesh: the anchor batch padded to a
+            # multiple of the mesh size with frame_valid = 0 rows
+            if opts["linear"] == "tridiag":
+                # the exact elimination is sequential across frame shards
+                print("[INFO] --linear tridiag applies to the single-chip/"
+                      "window solves; sharded stage-1 uses the distributed "
+                      "PCG", file=sys.stderr)
+            pad = (-n_a) % math.lcm(mesh_n, mesh.size)
+            a_p = np.tile(default_pose, (n_a + pad, 1))
+            a_p[:n_a] = poses[anchor_idx]
+            a_k = np.zeros((n_a + pad,) + kp.shape[1:], kp.dtype)
+            a_k[:n_a] = kp[anchor_idx]
+            a_r = np.tile(np.eye(3, dtype=np.float32), (n_a + pad, 1, 1))
+            a_r[:n_a] = r0[anchor_idx]
+            a_v = np.zeros(n_a + pad, np.float32)
+            a_v[:n_a] = 1.0
+            fit1 = build_sharded_lm_fitter(mesh, spec, cam, cfg1,
+                                           model.num_shapes, dtype=dtype)
+            args1 = (t(a_p), t(shape_w), t(a_k), t(a_r), t(a_v))
+            build_sharded_lm_fitter(mesh, spec, cam, one_trip(cfg1),
+                                    model.num_shapes, dtype=dtype)(*args1)
+            sync()
         else:
             fit1 = build_multi_fitter(spec, cam, cfg1, model.num_shapes,
                                       device=dev, dtype=dtype)
@@ -386,6 +436,7 @@ def main(argv=None, *, device="cuda") -> int:
                      t(r0[anchor_idx]))
             warm_up(spec, cfg1, args1)
             sync()
+        if not fused_active:
             t1 = StageTimer()
             with profile_trace(profile_dir):
                 st1 = fit1(*args1)
@@ -402,12 +453,15 @@ def main(argv=None, *, device="cuda") -> int:
             anchor_params = st1.params.cpu().numpy()[:n_a]
             shape_w = st1.shape.cpu().numpy()
             loss_curve = st1.cost_history.cpu().numpy()
-            anchor_errs, _ = batched_frame_eval(
-                model, anchor_params, np.tile(shape_w, (len(anchor_idx), 1)),
-                r0[anchor_idx], kp[anchor_idx], cam, want_verts=False)
-            append_log(opts["out_dir"],
-                       [(fid, float(anchor_errs[k]), ms_anchor / len(anchor_idx))
-                        for k, fid in enumerate(anchor_idx)])
+            if rank == 0:
+                anchor_errs, _ = batched_frame_eval(
+                    model, anchor_params,
+                    np.tile(shape_w, (len(anchor_idx), 1)), r0[anchor_idx],
+                    kp[anchor_idx], cam, want_verts=False)
+                append_log(opts["out_dir"],
+                           [(fid, float(anchor_errs[k]),
+                             ms_anchor / len(anchor_idx))
+                            for k, fid in enumerate(anchor_idx)])
 
             if opts["init_from_anchors"]:
                 # framework extension: seed the windows from the anchor
@@ -498,12 +552,20 @@ def main(argv=None, *, device="cuda") -> int:
 
     if resume_start > 0:
         starts = [s for s in starts if s >= resume_start]
+    if mesh is not None and mesh.rank and not opts["batched_windows"]:
+        return 0    # the sequential windows are rank 0's
     if opts["batched_windows"]:
         packs = [window_inputs(s) for s in starts]
-        if opts["window_chunk"] == 0 and len(packs) > 128:
+        if opts["window_chunk"] == 0 and mesh is None and len(packs) > 128:
             print(f"[INFO] {len(packs)} windows in one batch; on long "
                   "videos `--window-chunk 67` (with --cg-rtol 0) bounds "
                   "the slowest-window tail", file=sys.stderr)
+        if mesh is not None:   # all-invalid dummy windows fill the mesh
+            packs = packs + [(0, np.tile(default_pose, (wsize, 1)),
+                              np.zeros_like(packs[0][2]),
+                              np.tile(eye3, (wsize, 1, 1)),
+                              np.zeros(wsize, np.float32))] * (
+                (-len(packs)) % math.lcm(mesh_n, mesh.size))
         bp, bk, br, bv = (t(np.stack([p[j] for p in packs]))
                           for j in (1, 2, 3, 4))
         bw = t(np.tile(shape_w, (len(packs), 1)))
@@ -528,6 +590,11 @@ def main(argv=None, *, device="cuda") -> int:
         with profile_trace(profile_dir):
             if fused_active:
                 st1f, st2 = fufit(*fu_args)
+            elif mesh is not None:
+                # data parallelism over the windows; --window-chunk
+                # composes (each rank's block in chunks)
+                st2 = sharded_window_fit(mesh, fit2, bp, bw, bk, br, bv,
+                                         chunk=opts["window_chunk"])
             elif opts["window_chunk"] > 0:
                 st2 = build_chunked_window_fit(
                     fit2, opts["window_chunk"])(bp, bw, bk, br, bv)
@@ -535,6 +602,8 @@ def main(argv=None, *, device="cuda") -> int:
                 st2 = fit2(bp, bw, bk, br, bv)
             sync()
         ms_total = t2.ms()
+        if rank:
+            return 0
         params2 = st2.params.cpu().numpy()
         if fused_active:
             # deferred stage-1 bookkeeping: the single call has no stage

@@ -194,20 +194,29 @@ def build_fitter(prob: SingleFrameProblem, max_iters: int, *, device, dtype,
                         x0, cfg, lower=lower, upper=upper, frozen=frozen)
 
     def fit(x0, kp_dense):
-        x0 = torch.as_tensor(x0).to(device=device, dtype=dtype)
-        kp = torch.as_tensor(kp_dense).to(device=device, dtype=dtype)
-        n = x0.shape[0]
-        if chunk <= 0 or n == 0:
-            return solve(x0, kp)
-        pad = (-n) % chunk
-        if pad:
-            x0 = torch.cat([x0, x0[-1:].expand(pad, -1)])
-            kp = torch.cat([kp, kp[-1:].expand((pad,) + kp.shape[1:])])
-        parts = [solve(x0[s:s + chunk], kp[s:s + chunk])
-                 for s in range(0, n + pad, chunk)]
-        return LMResult(*(torch.cat(f)[:n] for f in zip(*parts)))
+        return fit_in_chunks(
+            solve, chunk, torch.as_tensor(x0).to(device=device, dtype=dtype),
+            torch.as_tensor(kp_dense).to(device=device, dtype=dtype))
 
     return fit
+
+
+def fit_in_chunks(fit, chunk: int, x0: torch.Tensor,
+                  kp: torch.Tensor) -> LMResult:
+    """``fit(x0, kp)`` over the frames in chunks of ``chunk`` (all at once
+    for ``chunk <= 0``), each with its own convergence exit; the batch is
+    padded to a multiple of ``chunk`` by repeating its last frame, and the
+    pad is stripped."""
+    n = x0.shape[0]
+    if chunk <= 0 or n == 0:
+        return fit(x0, kp)
+    pad = (-n) % chunk
+    if pad:
+        x0 = torch.cat([x0, x0[-1:].expand(pad, -1)])
+        kp = torch.cat([kp, kp[-1:].expand((pad,) + kp.shape[1:])])
+    parts = [fit(x0[s:s + chunk], kp[s:s + chunk])
+             for s in range(0, n + pad, chunk)]
+    return LMResult(*(torch.cat(f)[:n] for f in zip(*parts)))
 
 
 _fitter_cache: dict = {}

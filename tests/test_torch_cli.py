@@ -65,6 +65,7 @@ from smpltpu.pipeline import multi as j_multi
 from smpltpu.utils import default_intrinsics as j_intrinsics
 from smpltpu_torch.energy import make_skeleton_spec
 from smpltpu_torch.models import SMPLModel
+from smpltpu_torch.parallel import run_ranks
 from smpltpu_torch.pipeline import multi as t_multi
 from smpltpu_torch.utils import default_intrinsics
 from tests.conftest import fixture_path
@@ -588,12 +589,23 @@ def test_cli_count_mismatch_and_usage(dataset, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], "M14"),
+    (["--mesh", "2"], None),
     (["--linear", "cr"], "Do not port"),
     (["--ckpt-backend", "orbax"], "Do not port"),
 ])
-def test_cli_refuses_flags_not_ported(tmp_path, capsys, flags, item):
+def test_cli_refuses_flags_not_ported(dataset, tmp_path, capsys, flags, item):
+    """--linear cr and --ckpt-backend orbax exit with a message naming
+    their ROADMAP.md entry. --mesh 2 is ported (M14): its two ranks run
+    (here as threads; tests/test_torch_mesh_cli.py holds them to the JAX
+    CLI)."""
     out = str(tmp_path / "o")
+    if item is None:
+        argv = list(dataset) + [out, "5", "5"] + NUMERIC[2:] + flags
+        assert run_ranks(2, lambda mesh: t_multi.main(
+            argv, device="cpu", mesh=mesh)) == [0, 0]
+        assert "devices visible: 1  mesh size: 2" in capsys.readouterr().out
+        assert os.path.isfile(os.path.join(out, "params_multi.npz"))
+        return
     assert t_multi.main(["m.npz", "k", "i", out] + flags, device="cpu") == 1
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err

@@ -66,6 +66,12 @@ SLICE_MODULES = [
     "smpltpu_torch.pipeline.stream",
     "smpltpu_torch.pipeline.api",
     "smpltpu_torch.pipeline.video",
+    "smpltpu_torch.parallel",
+    "smpltpu_torch.parallel.mesh",
+    "smpltpu_torch.parallel.sharded",
+    "smpltpu_torch.parallel.launch",
+    "smpltpu_torch.utils.roofline",
+    "smpltpu_torch.graft_entry",
 ]
 # every source file of the port, and the card check
 PORT_FILES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -148,3 +154,18 @@ def test_constants_copy_matches_reference(name):
     assert type(got) is type(want)
     if isinstance(want, np.ndarray):
         assert got.dtype == want.dtype
+
+
+
+@pytest.mark.parametrize("module", ["parallel", "parallel.mesh",
+                                    "parallel.sharded"])
+def test_parallel_names_match_reference(module):
+    """Every public name that the JAX package's ``smpltpu/parallel``
+    defines has its counterpart in the port."""
+    import importlib
+
+    ref = importlib.import_module(f"smpltpu.{module}")
+    want = {n for n, v in vars(ref).items() if not n.startswith("_")
+            and getattr(v, "__module__", "").startswith("smpltpu.parallel")}
+    got = vars(importlib.import_module(f"smpltpu_torch.{module}"))
+    assert want and not sorted(want - set(got))

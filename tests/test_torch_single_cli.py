@@ -27,6 +27,7 @@ import torch
 
 from smpltpu.pipeline import multi as j_multi
 from smpltpu.pipeline import single as j_single
+from smpltpu_torch.parallel import run_ranks
 from smpltpu_torch.pipeline import multi as t_multi
 from smpltpu_torch.pipeline import single as t_single
 from tests.test_pipeline import N_FRAMES, _make_dataset
@@ -128,20 +129,26 @@ def test_parse_args_matches_reference(argv, capsys):
     assert t_single.parse_args(full[:3]) is None
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], "M14"),
-    (["--adaptive-propagate", "--mesh", "8"], "M14"),
+@pytest.mark.parametrize("flags,ranks", [
+    (["--mesh", "2"], 2),
+    (["--adaptive-start", "--adaptive-propagate", "--mesh", "8"], 8),
 ])
-def test_single_cli_refuses_flags_not_ported(tmp_path, capsys, flags, item):
+def test_single_cli_refuses_flags_not_ported(dataset, tmp_path, capsys, flags,
+                                             ranks):
+    """The single CLI refuses nothing: --mesh N (M14, ported), with the
+    adaptive path's --adaptive-propagate too, runs N ranks (here as
+    threads; tests/test_torch_mesh_cli.py holds them to the JAX CLI),
+    every frame's row written once, by rank 0."""
     out = str(tmp_path / "o")
-    assert t_single.main(["m.npz", "k", "i", out] + flags, device="cpu") == 1
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
-    assert not os.path.exists(out)
+    assert run_ranks(ranks, lambda mesh: t_single.main(
+        list(dataset) + [out] + ITERS + flags, device="cpu",
+        mesh=mesh)) == [0] * ranks
+    assert f"devices visible: 1  mesh size: {ranks}" in capsys.readouterr().out
+    np.testing.assert_array_equal(_log(out)[0], [0, 1, 3, 5])
 
 
 def test_single_cli_warnings_usage_and_metrics(dataset, tmp_path, capsys):
-    """--mesh 0 says it runs one device; --use-gmm without a prior falls
+    """--mesh 0 runs one rank on the CPU; --use-gmm without a prior falls
     back to L2 with a warning, and at beta_pose >= GMM_BETA_WARN warns of
     the objective; --metrics-jsonl and --profile write their files; too
     few arguments print the usage."""
@@ -151,7 +158,7 @@ def test_single_cli_warnings_usage_and_metrics(dataset, tmp_path, capsys):
                           "--metrics-jsonl", out + ".jsonl", "--profile"],
                          device="cpu") == 0
     said = capsys.readouterr()
-    assert "mesh size: 1  (--mesh 0: one device" in said.out
+    assert "devices visible: 1  mesh size: 1\n" in said.out
     assert "Pose prior components: 8  (GMM ON)" in said.out
     assert f"beta_pose=20 >= {t_single.GMM_BETA_WARN:g}" in said.err
     assert open(out + ".jsonl").read().count('"single_solve"') == 1
