@@ -5,7 +5,6 @@ gloo on the CPU (``mesh.py``), and the sharded solvers (``sharded.py``)."""
 from smpltpu_torch.parallel.mesh import (  # noqa: F401
     FramesMesh,
     frames_mesh,
-    gather_frames,
     mesh_size,
     run_ranks,
     shard_frames,

@@ -44,10 +44,9 @@ class FramesMesh:
     (CUDA: the card ``cuda:rank`` unless an index is given). ``calls``
     counts the collectives this rank issued, by kind."""
 
-    def __init__(self, store, rank: int, size: int, device,
-                 timeout_s: float = TIMEOUT_S):
+    def __init__(self, store, rank: int, size: int, device):
         device = torch.device(device)
-        timeout = datetime.timedelta(seconds=timeout_s)
+        timeout = datetime.timedelta(seconds=TIMEOUT_S)
         if device.type == "cuda":
             if device.index is None:
                 device = torch.device("cuda", rank)
@@ -130,8 +129,7 @@ class FramesMesh:
         return x[self.rank * k:(self.rank + 1) * k]
 
 
-def frames_mesh(n: int, device, rank: int = 0, store=None,
-                timeout_s: float = TIMEOUT_S) -> FramesMesh:
+def frames_mesh(n: int, device, rank: int = 0, store=None) -> FramesMesh:
     """The rank ``rank`` of a mesh of ``mesh_size(n, device)`` ranks. A
     mesh of more than one rank needs the store its ranks share
     (:func:`run_ranks` and ``parallel/launch.py`` make one); a one-rank
@@ -142,7 +140,7 @@ def frames_mesh(n: int, device, rank: int = 0, store=None,
             raise ValueError(f"a mesh of {size} ranks needs the store its "
                              "ranks share")
         store = dist.HashStore()
-    return FramesMesh(store, rank, size, device, timeout_s)
+    return FramesMesh(store, rank, size, device)
 
 
 def shard_frames(mesh: FramesMesh, x: torch.Tensor) -> torch.Tensor:
@@ -150,12 +148,7 @@ def shard_frames(mesh: FramesMesh, x: torch.Tensor) -> torch.Tensor:
     return mesh.shard(x)
 
 
-def gather_frames(mesh: FramesMesh, x: torch.Tensor) -> torch.Tensor:
-    """The ranks' blocks back in order, on every rank (rank 0 included)."""
-    return mesh.all_gather(x)
-
-
-def run_ranks(n: int, fn, device="cpu", timeout_s: float = 300.0) -> list:
+def run_ranks(n: int, fn, device="cpu") -> list:
     """``fn(mesh)`` on each rank of an n-rank mesh, the ranks as threads of
     this process over one in-memory store: [rank 0's result, ...]. A rank
     that raises ends the call with its exception (the others, blocked in
@@ -176,7 +169,7 @@ def run_ranks(n: int, fn, device="cpu", timeout_s: float = 300.0) -> list:
 
     def rank_main(r):
         try:
-            with FramesMesh(store, r, n, device, timeout_s) as mesh:
+            with FramesMesh(store, r, n, device) as mesh:
                 if core is not None:
                     # this thread only: the group's own threads, started
                     # above, keep every core (on one core the ring's sends
@@ -191,13 +184,13 @@ def run_ranks(n: int, fn, device="cpu", timeout_s: float = 300.0) -> list:
                for r in range(n)]
     for t in threads:
         t.start()
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + TIMEOUT_S
     while any(t.is_alive() for t in threads):
         if any(e is not None for e in errors):
             break
         if time.monotonic() > deadline:
             raise TimeoutError(f"run_ranks: ranks still running after "
-                               f"{timeout_s} s")
+                               f"{TIMEOUT_S} s")
         time.sleep(0.005)
     for e in errors:
         if e is not None:

@@ -334,7 +334,8 @@ def build_sharded_lm_fitter(mesh: FramesMesh, spec: SkeletonSpec,
             s = torch.sum(r.unflatten(-1, (-1, 2)) ** 2, dim=-1)
             c_kp = torch.sum(_huber_rho(s, cfg.huber_delta))
             c_pose = sh.bp2 * torch.sum(params[:, sh.aa] ** 2)
-            diff = (params - sh.neighbours(params)[0]) * sh.tmask
+            p_next = torch.cat([params[1:], sh.halo_next(params)[None]])
+            diff = (params - p_next) * sh.tmask
             c_temp = torch.sum(lam2[:, None] * diff * diff)
             total = mesh.all_reduce((c_kp + c_pose + c_temp).reshape(1))[0]
             return 0.5 * (total + sh.bs2 * torch.sum(w * w))
