@@ -34,12 +34,18 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    then the same fit with the plain PCG, which must land within 0.1 px;
    then once more with the exact solve (``linear="tridiag"``, the
    library's and the CLI's default): residual under 2.0 px, no K1 launch
-   (phase ``5 main_path_tridiag``). Before the timed fit, phase 7 takes
-   the same first LM iteration's systems through the exact solve in
-   float32 under ``torch.cuda.set_sync_debug_mode("error")`` (no host
-   sync), held to float64 and to a dense float64 solve, with K1's 40-step
-   answer's distance from it (PCG's truncation), the ms per solve and the
-   device launches per solve.
+   (phase ``5 main_path_tridiag``); then with the other exact solve,
+   cyclic reduction (``5 main_path_cr``), within CR_TRIDIAG_GAP_MAX_PX of
+   tridiag's residual; then ``5 jvp_assembly``: the warm-up's first
+   stage-2 normal-equation pieces by ``jacobian="jvp"`` against the
+   analytic ones, float32 and float64. Before the timed fit, phase 7
+   takes the same first LM iteration's systems through both exact solves
+   (``7 tridiag_*``, ``7 cr_*``) in float32 under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), held to
+   float64 and to a dense float64 solve (and cr's float64 to tridiag's),
+   with K1's 40-step answer's distance from it (PCG's truncation), the ms
+   per solve and the device launches per solve; ``7 exact_long`` times
+   both on one random window of 1000 and of 4000 frames.
 6. the render stage: K3 (the z-buffer rasterizer) through both entry
    points, ``rasterize`` from a face setup and ``rasterize_verts`` from the
    vertices, each pixel-exact against the plain version, and the setup
@@ -80,6 +86,8 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    (the model of tests/test_fullres_golden.py on blank 1280 x 720 frames,
    its argv with 400 stage-2 iterations, plus --jax-render; log.csv held
    row by row to tests/data/fullres_golden_video1_mesh1.npz),
+   ``cli_cr`` (cli_golden's argv with --linear cr: its mean held to the
+   CPU run's, its rows to cli_golden's within the golden's bound),
    ``cli_kernels`` (the golden's argv at full width with --fused-stages
    --linear pcg_kernel --jax-render beside --linear pcg on the sequential
    stages) and ``cli_single`` (the single CLI, the full-width model on
@@ -109,7 +117,12 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    ``cli_mesh*`` (the multi and single CLIs with ``--mesh 2``,
    ``CLI_MESH_RUNS``: each mean held to the CPU run's, every K3 launch
    pixel-exact).
-11. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+11. the host runtime, phase ``12 host_native``: video1 and 1000 synthetic
+   keypoint files parsed by the C++ parser (``smpltpu_torch/native``,
+   built with g++ at first use) and by the Python one, bit-equal; one
+   fitted frame at 1280 x 720 filled by the C++ fill and the numpy fill,
+   bit-equal; each timed.
+12. one more fit under torch.profiler, at a fifth of the depth (30 + 12
    LM iterations: the profiler takes half a minute to digest a full
    fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
    launches, the idle share; last, so that the profiler's cost touches
@@ -160,8 +173,24 @@ PLAIN_GAP_MAX_PX = 0.1
 PROFILE_DEPTH = 5             # the profiled fit runs 1/5 of the LM iterations
 TRIDIAG_F32_MAX = 1e-3        # exact solve, f32 vs f64, relative to scale
 TRIDIAG_DENSE_MAX = 1e-8      # exact solve in f64 vs a dense f64 solve
+# 5 main_path_cr: the cr fit's full-batch residual against tridiag's (both
+# exact solves of the same steps; only f32 rounding parts them)
+CR_TRIDIAG_GAP_MAX_PX = 0.01
+# 5 jvp_assembly: the forward-mode pieces against the analytic ones, each
+# relative to the piece's scale: float64 to rounding; float32 jvp within
+# twice the float32 analytic pieces' distance from float64, plus this
+JVP_F64_MAX, JVP_F32_SLACK = 1e-10, 1e-5
+# 12 host_native: the synthetic keypoint directory's size
+NATIVE_FILES = 1000
+# 7 exact_long: the exact solves on one random window of these many frames
+# (d is 92 MB in f32 at 4000); tridiag's launches counted at two sizes
+EXACT_LONG_F, EXACT_LONG_PROFILE_F = (1000, 4000), (100, 200)
 CLI_DEFAULT_MEAN_MAX_PX = 4.0  # cli_default's mean log.csv error (CPU: 2.39)
 CLI_FUSED_GAP_MAX_PX = 0.5     # tests/test_fused_cli.py:57
+# cli_cr: the golden's argv with --linear cr; the port's CPU run's log.csv
+# mean (tests/test_torch_cli.py::test_cli_fullres_golden_cr's run, measured
+# once with torch 2.13 on the CPU) and the gap allowed on the card
+CLI_CR_CPU_MEAN_PX, CLI_CR_GAP_MAX_PX = 6.719750422697801, 0.05
 # cli_golden, as tests/test_torch_cli.py holds the port to the pin the JAX
 # CLI recorded with --mesh 1 (tests/data/fullres_golden_video1_mesh1.npz):
 # per row the reference's own spread there, then 1 % + 0.02 px; the mean
@@ -1003,21 +1032,52 @@ def assemble_arrow(d, off, tm, b, c):
     return a
 
 
+def device_profile(fn):
+    """(device launches, device ms, the top five kernels [name, ms, count])
+    of one call of fn() under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in dev_ev),
+            sum(e.self_device_time_total for e in dev_ev) / 1e3,
+            [[e.key[:70], e.self_device_time_total / 1e3, e.count]
+             for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:5]])
+
+
+def no_sync(fn):
+    """fn() under ``torch.cuda.set_sync_debug_mode("error")``: (its result,
+    None) or (None, the start of the error a host sync raised)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(), None
+    except RuntimeError as e:
+        return None, str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 def tridiag_phase(first, k1_main, checks):
-    """Phase 7: the exact arrowhead solve (``linear="tridiag"``:
-    block-tridiagonal elimination + the shape Schur complement,
+    """Phase 7: the exact arrowhead solves (``linear="tridiag"``:
+    block-tridiagonal elimination, and ``linear="cr"``: block cyclic
+    reduction; each followed by the shape Schur complement,
     ``solve/multi_frame.py::arrow_tridiag``) on the first LM iteration's
     real systems of both stages, in float32 on the card under
     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises); held
     to the same solve in float64 (TRIDIAG_F32_MAX of scale) and that to a
-    dense float64 solve of the assembled system (TRIDIAG_DENSE_MAX). K1's
-    40 steps beside them: PCG's truncation, its distance from the exact
-    float64 solution. Times by CUDA events around eager calls (the solve
-    is a chain of small launches; the host's enqueueing is in it); device
-    time and launches per solve from the profiler."""
+    dense float64 solve of the assembled system (TRIDIAG_DENSE_MAX); cr's
+    float64 solve beside tridiag's. K1's 40 steps beside them: PCG's
+    truncation, its distance from the exact float64 solution. Times by CUDA
+    events around eager calls (each solve is a chain of small launches;
+    the host's enqueueing is in it); device time and launches per solve
+    from the profiler."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from smpltpu_torch.ops import cg
     from smpltpu_torch.solve.multi_frame import arrow_tridiag
 
@@ -1025,57 +1085,234 @@ def tridiag_phase(first, k1_main, checks):
         return float((x.double() - ref).abs().max() / ref.abs().max())
     out = {}
     for shape, (a, k) in sorted(first.items()):
-        label = "stage1" if shape[0] == 1 else "stage2"
-        torch.cuda.synchronize()
-        synced = None
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            dp, dw = arrow_tridiag(*a)
-        except RuntimeError as e:
-            synced = str(e)[:300]
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        checks(synced is None, f"tridiag {label}: the solve synchronized: {synced}")
-        if synced is not None:
-            continue
+        stage = "stage1" if shape[0] == 1 else "stage2"
         a64 = [t.double() for t in a]
-        dp64, dw64 = arrow_tridiag(*a64)
         n_w, f, p = a[5].shape
         x = torch.linalg.solve(assemble_arrow(*a64[:5]),
                                -torch.cat([a64[5].flatten(1), a64[6]], 1))
         dp_d, dw_d = x[:, :f * p].reshape(n_w, f, p), x[:, f * p:]
-        k1_p, k1_w = cg.arrow_pcg(*a, iters=k["iters"], rtol=k["rtol"])
-        pl_p, pl_w = cg.arrow_pcg_torch(*a64, iters=k["iters"], rtol=k["rtol"])
-        res = {"shape": list(a[0].shape), "n_s": int(a[6].shape[-1]),
-               "f32_vs_f64": [rel(dp, dp64), rel(dw, dw64)],
-               "f64_vs_dense": [rel(dp64, dp_d), rel(dw64, dw_d)],
-               "k1_f32_vs_exact": [rel(k1_p, dp_d), rel(k1_w, dw_d)],
-               "plain_pcg_f64_vs_exact": [rel(pl_p, dp_d), rel(pl_w, dw_d)],
-               "finite": bool(torch.isfinite(dp).all() and torch.isfinite(dw).all())}
-        del x, dp_d, dw_d
-        ok = (res["finite"] and max(res["f32_vs_f64"]) <= TRIDIAG_F32_MAX
-              and max(res["f64_vs_dense"]) <= TRIDIAG_DENSE_MAX)
-        checks(ok, f"tridiag {label}: f32 vs f64 {res['f32_vs_f64']} (max "
-                   f"{TRIDIAG_F32_MAX}), f64 vs dense {res['f64_vs_dense']} "
-                   f"(max {TRIDIAG_DENSE_MAX}), finite {res['finite']}")
-        res["ms"] = cuda_ms(lambda: arrow_tridiag(*a), 5)
-        res["k1_ms"] = k1_main[f"{label}_first_lm_iter"]["ms"]
-        res["f64_ms"] = cuda_ms(lambda: arrow_tridiag(*a64), 2)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            arrow_tridiag(*a)
-            torch.cuda.synchronize()
-        dev_ev = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        res["device_launches_per_solve"] = sum(e.count for e in dev_ev)
-        res["device_ms_per_solve"] = sum(
-            e.self_device_time_total for e in dev_ev) / 1e3
-        res["top_kernels_ms"] = [
-            [e.key[:70], e.self_device_time_total / 1e3, e.count]
-            for e in sorted(dev_ev, key=lambda e: -e.self_device_time_total)[:5]]
-        phase(f"7 tridiag_{label}", ok=ok, **res)
-        out[label] = res
-        del a64, dp64, dw64
+        del x
+        f64 = {}
+        for linear in ("tridiag", "cr"):
+            label = f"{linear}_{stage}"
+
+            def solve(args=a, linear=linear):
+                return arrow_tridiag(*args, linear=linear)
+            got, synced = no_sync(solve)
+            checks(synced is None,
+                   f"{label}: the solve synchronized: {synced}")
+            if synced is not None:
+                continue
+            dp, dw = got
+            dp64, dw64 = f64[linear] = solve(a64)
+            res = {"shape": list(a[0].shape), "n_s": int(a[6].shape[-1]),
+                   "f32_vs_f64": [rel(dp, dp64), rel(dw, dw64)],
+                   "f64_vs_dense": [rel(dp64, dp_d), rel(dw64, dw_d)],
+                   "finite": bool(torch.isfinite(dp).all()
+                                  and torch.isfinite(dw).all())}
+            ok = (res["finite"] and max(res["f32_vs_f64"]) <= TRIDIAG_F32_MAX
+                  and max(res["f64_vs_dense"]) <= TRIDIAG_DENSE_MAX)
+            if linear == "tridiag":
+                k1_p, k1_w = cg.arrow_pcg(*a, iters=k["iters"], rtol=k["rtol"])
+                pl_p, pl_w = cg.arrow_pcg_torch(*a64, iters=k["iters"],
+                                                rtol=k["rtol"])
+                res["k1_f32_vs_exact"] = [rel(k1_p, dp_d), rel(k1_w, dw_d)]
+                res["plain_pcg_f64_vs_exact"] = [rel(pl_p, dp_d),
+                                                 rel(pl_w, dw_d)]
+                res["k1_ms"] = k1_main[f"{stage}_first_lm_iter"]["ms"]
+            else:
+                t64 = f64["tridiag"]
+                res["f64_vs_tridiag_f64"] = [rel(dp64, t64[0]),
+                                             rel(dw64, t64[1])]
+                ok = ok and max(res["f64_vs_tridiag_f64"]) <= TRIDIAG_DENSE_MAX
+            checks(ok, f"{label}: {res} (f32 max {TRIDIAG_F32_MAX}, f64 "
+                       f"max {TRIDIAG_DENSE_MAX})")
+            res["ms"] = cuda_ms(solve, 5)
+            res["f64_ms"] = cuda_ms(lambda: solve(a64), 2)
+            (res["device_launches_per_solve"], res["device_ms_per_solve"],
+             res["top_kernels_ms"]) = device_profile(solve)
+            phase(f"7 {label}", ok=ok, **res)
+            out[label] = res
+        del a64, f64, dp_d, dw_d
     return out
+
+
+def exact_long_phase(dev, checks):
+    """``7 exact_long``: both exact arrowhead solves on one random SPD
+    system (``random_arrow_system``, one window) at each of EXACT_LONG_F
+    frames, float32: ms per solve, launches per solve, cr under sync-debug
+    "error", cr's float32 against its float64 and against tridiag's
+    float32. tridiag's launches grow by a fixed count a frame: they are
+    counted by the profiler at EXACT_LONG_PROFILE_F frames and extended
+    linearly (its profile at 4000 frames would hold ~200 000 records, which
+    the profiler takes minutes to digest); cr's are counted at each size."""
+    import torch
+    from smpltpu_torch.solve.multi_frame import arrow_tridiag
+
+    rng = np.random.default_rng(7)
+
+    def rel(x, ref):
+        return float((x.double() - ref.double()).abs().max()
+                     / ref.double().abs().max())
+    counted = {}
+    for f in EXACT_LONG_PROFILE_F:
+        a = random_arrow_system(rng, 1, f, dev)
+        counted[f] = device_profile(lambda: arrow_tridiag(*a))[0]
+        del a
+    (f0, n0), (f1, n1) = sorted(counted.items())
+    per_frame = (n1 - n0) / (f1 - f0)
+    res = {"tridiag_launches_counted": {str(f): n for f, n in counted.items()},
+           "tridiag_launches_per_frame": per_frame}
+    ok = True
+    for f in EXACT_LONG_F:
+        a = random_arrow_system(rng, 1, f, dev)
+        row = {"d_mb": nbytes(a[0]) / 1e6}
+        got, synced = no_sync(lambda: arrow_tridiag(*a, linear="cr"))
+        ok &= synced is None
+        dp, dw = got if got is not None else arrow_tridiag(*a, linear="cr")
+        dp64, dw64 = arrow_tridiag(*(t.double() for t in a), linear="cr")
+        tp, tw = arrow_tridiag(*a)
+        row["cr_f32_vs_f64"] = [rel(dp, dp64), rel(dw, dw64)]
+        row["cr_vs_tridiag_f32"] = [rel(dp, tp), rel(dw, tw)]
+        row["tridiag_f32_vs_cr_f64"] = [rel(tp, dp64), rel(tw, dw64)]
+        finite = bool(torch.isfinite(dp).all() and torch.isfinite(dw).all())
+        ok &= finite and max(row["cr_f32_vs_f64"]) <= TRIDIAG_F32_MAX
+        row["cr_ms"] = cuda_ms(lambda: arrow_tridiag(*a, linear="cr"), 3)
+        row["tridiag_ms"] = cuda_ms(lambda: arrow_tridiag(*a), 1)
+        row["cr_launches"], row["cr_device_ms"], _ = device_profile(
+            lambda: arrow_tridiag(*a, linear="cr"))
+        row["tridiag_launches"] = int(round(n1 + per_frame * (f - f1)))
+        row["cr_synced"] = synced
+        res[str(f)] = row
+        del a, dp64, dw64, tp, tw
+    checks(ok, f"exact_long: {res}")
+    phase("7 exact_long", ok=ok, **res)
+    return res
+
+
+def jvp_phase(w, captured, dev, checks):
+    """``5 jvp_assembly``: the first LM iteration's normal-equation pieces
+    at the stage-2 shape (the warm-up's first ``corrected_frame_assembly``
+    call of the 67 x 20 windows, padded frames included) by
+    ``jacobian="jvp"`` (forward mode, ``torch.func``) and by the analytic
+    Jacobian, in float32 and float64 on the card: jvp against analytic in
+    float64 within JVP_F64_MAX of each piece's scale; float32 jvp finite
+    and no further from float64 than twice float32 analytic's distance
+    plus JVP_F32_SLACK; ms and device launches of each."""
+    import torch
+    from smpltpu_torch.constants import init_root_rotation
+    from smpltpu_torch.energy import make_skeleton_spec
+    from smpltpu_torch.models import SMPLModel
+    from smpltpu_torch.solve.multi_frame import corrected_frame_assembly
+    from smpltpu_torch.utils import default_intrinsics
+
+    checks(captured is not None, "jvp_assembly: no stage-2 assembly captured")
+    if captured is None:
+        return
+    p, wv, kp, r0, cam, spec, delta = captured[:7]
+    f64 = torch.float64
+    spec64 = make_skeleton_spec(SMPLModel.from_dict(
+        w["model_dict"], device=dev, dtype=f64), init_root_rotation(),
+        with_shape=True)
+    inputs = {"f32": (p, wv, kp, r0, cam, spec),
+              "f64": (p.double(), wv.double(), kp.double(), r0.double(),
+                      default_intrinsics(720, 1280, device=dev, dtype=f64),
+                      spec64)}
+    res = {"shape": list(p.shape), "huber_delta": delta,
+           "masked_slots": int((kp[..., 3] == 0).sum()),
+           "padded_frames": int((kp[..., 3] == 0).all(-1).sum())}
+    pieces = {}
+    for tag, args in inputs.items():
+        for jac in ("analytic", "jvp"):
+            def fn(args=args, jac=jac):
+                return corrected_frame_assembly(*args, delta, jac,
+                                                with_cost=True)
+            pieces[tag, jac] = fn()
+            res[f"{jac}_{tag}_ms"] = cuda_ms(fn, 3)
+            res[f"{jac}_{tag}_launches"], res[f"{jac}_{tag}_device_ms"], _ = \
+                device_profile(fn)
+
+    def rel(got, want):
+        return [float((g.double() - r).abs().max()
+                      / r.abs().max().clamp_min(1e-30))
+                for g, r in zip(got, want)]
+    ref = pieces["f64", "analytic"]
+    res["jvp_f64_vs_analytic_f64"] = rel(pieces["f64", "jvp"], ref)
+    res["jvp_f32_vs_analytic_f64"] = rel(pieces["f32", "jvp"], ref)
+    res["analytic_f32_vs_analytic_f64"] = rel(pieces["f32", "analytic"], ref)
+    res["jvp_f32_finite"] = all(bool(torch.isfinite(t).all())
+                                for t in pieces["f32", "jvp"])
+    ok = (res["jvp_f32_finite"]
+          and max(res["jvp_f64_vs_analytic_f64"]) <= JVP_F64_MAX
+          and all(j <= 2.0 * a + JVP_F32_SLACK for j, a in zip(
+              res["jvp_f32_vs_analytic_f64"],
+              res["analytic_f32_vs_analytic_f64"])))
+    checks(ok, f"jvp_assembly: {res}")
+    phase("5 jvp_assembly", ok=ok, **res)
+
+
+def host_native_phase(w, verts, checks):
+    """``12 host_native``: the host runtime (``smpltpu_torch.native``, built
+    with g++ from ``smpltpu_torch/csrc/host``): video1's keypoints and a
+    directory of NATIVE_FILES synthetic keypoint files (under
+    ``build/chip_smoke_native``, removed after) parsed by the native and
+    the Python parser, bit-equal, each timed; one frame of phase 5's fitted
+    meshes at 1280 x 720 filled by the C++ fill and by the numpy fill,
+    bit-equal, each timed."""
+    import shutil
+    from smpltpu_torch import native
+    from smpltpu_torch.io import load_keypoint_dir
+    from smpltpu_torch.render import raster as painter
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    native.ensure_built()
+    # the build ran at the library's first use in this process (phase 5's
+    # overlay, through the host painter, where cv2 is absent)
+    res = {"build": dict(native.build_info)}
+    root = os.path.join(here, "build", "chip_smoke_native")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(12)
+    for i in range(NATIVE_FILES):
+        lms = [{"x": float(x), "y": float(y), "z": 0.0, "visibility": float(v)}
+               for x, y, v in rng.random((33, 3))]
+        with open(os.path.join(root, f"frame_{i:05d}.json"), "w") as f:
+            json.dump(lms, f)
+    ok = True
+    for label, d in (("video1", os.path.join(here, "data", "keypoints",
+                                             "video1")),
+                     (f"synthetic{NATIVE_FILES}", root)):
+        row = {}
+        for backend in ("native", "python"):
+            t0 = time.perf_counter()
+            row[backend], _ = load_keypoint_dir(d, 720, 1280, backend=backend)
+            row[f"{backend}_ms"] = (time.perf_counter() - t0) * 1e3
+        same = bool(np.array_equal(row.pop("native"), row.pop("python")))
+        ok &= same
+        res[label] = dict(row, bit_equal=same)
+    shutil.rmtree(root, ignore_errors=True)
+    cam = w["cam"]
+    tris, shade = painter.build_drawlist(
+        np.asarray(verts[0], np.float64), np.asarray(w["model"].faces),
+        float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+    gray = np.round(220.0 * shade).astype(np.int32)
+    imgs = {}
+    for fill in ("native", "numpy"):
+        img = np.zeros((H_R, W_R, 3), np.uint8)
+        t0 = time.perf_counter()
+        if fill == "native":
+            native.fill_triangles(img, tris, gray)
+        else:
+            painter._fill_triangles_numpy(
+                img, tris, np.stack([gray] * 3, axis=-1).astype(np.uint8))
+        res[f"fill_{fill}_ms"] = (time.perf_counter() - t0) * 1e3
+        imgs[fill] = img
+    same = bool(np.array_equal(imgs["native"], imgs["numpy"]))
+    res.update(fill_bit_equal=same, fill_triangles=len(gray),
+               fill_covered_px=int(imgs["native"].any(-1).sum()))
+    ok &= same and res["fill_covered_px"] > 0
+    checks(ok, f"host_native: {res}")
+    phase("12 host_native", ok=ok, **res)
 
 
 def cli_run(label, argv, root, checks, k3_check=False, cli="multi"):
@@ -1254,6 +1491,37 @@ def cli_phases(checks):
                                    in zip(frames[off], errs[off],
                                           g["errs"][off])])
     phase("8 cli_golden", **res)
+
+    # cli_cr: the golden's argv with the other exact solve, cyclic
+    # reduction, K3 per frame; its mean against the CPU run's, its rows
+    # against cli_golden's (tridiag on the card) within the golden's bound
+    golden_rows = (frames, errs) if res["rc"] == 0 else None
+    res, frames, errs = cli_run(
+        "cli_cr", [small, kps, os.path.join(root, "blank")]
+        + GOLDEN_MESH1_ARGV + ["--linear", "cr", "--jax-render"], root,
+        checks, k3_check=True)
+    if res["rc"] == 0 and golden_rows is not None:
+        g = np.load(os.path.join(here, "tests", "data",
+                                 "fullres_golden_video1_mesh1.npz"))
+        spread = np.abs(g["errs_perturbed"] - g["errs"]).max(axis=0)
+        same_rows = np.array_equal(frames, golden_rows[0])
+        apart = (np.abs(errs - golden_rows[1]) if same_rows
+                 else np.array([np.inf]))
+        limit = spread + GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden_rows[1])
+        gap = abs(res["mean_px"] - CLI_CR_CPU_MEAN_PX)
+        ok = bool(same_rows and (apart <= limit).all()
+                  and gap <= CLI_CR_GAP_MAX_PX
+                  and res["launches"].get("arrow_pcg", 0) == 0
+                  and res["launches"].get("lbs", 0) > 0
+                  and res["launches"].get("raster", 0) == n_kp)
+        checks(ok, f"cli_cr: mean {res['mean_px']} px against the CPU's "
+                   f"{CLI_CR_CPU_MEAN_PX}; rows {apart.max()} px from "
+                   f"cli_golden's, {(apart / limit).max()} of the bound; {res}")
+        res.update(ok=ok, cpu_mean_px=CLI_CR_CPU_MEAN_PX, gap_px=gap,
+                   tridiag_mean_px=float(golden_rows[1].mean()),
+                   max_apart_from_tridiag_px=float(apart.max()),
+                   max_apart_of_bound=float((apart / limit).max()))
+    phase("8 cli_cr", **res)
 
     # cli_kernels: K1 + K2 + K3 through the fused path, beside plain PCG
     runs = {}
@@ -2089,6 +2357,7 @@ def main(argv):
     import smpltpu_torch
     from smpltpu_torch import _build
     from smpltpu_torch.ops import LAUNCHES, cg
+    from smpltpu_torch.solve import multi_frame
     from smpltpu_torch.pipeline.common import (
         batched_frame_eval,
         overlay_image,
@@ -2160,11 +2429,20 @@ def main(argv):
         first.setdefault(tuple(a[5].shape[:2]),
                          ([t.clone() for t in a], k))
         return real_pcg(*a, **k)
+    real_asm = multi_frame.corrected_frame_assembly
+    first_asm = {}
+
+    def capture_asm(*a, **k):
+        first_asm.setdefault(tuple(a[0].shape[:2]),
+                             [t.clone() if torch.is_tensor(t) else t for t in a])
+        return real_asm(*a, **k)
     cg.arrow_pcg = capture
+    multi_frame.corrected_frame_assembly = capture_asm
     try:
         run(*w["args"])
     finally:
         cg.arrow_pcg = real_pcg
+        multi_frame.corrected_frame_assembly = real_asm
     torch.cuda.synchronize()
     phase("5 warmup", seconds=run.timings)
     k1_main = {}
@@ -2174,8 +2452,9 @@ def main(argv):
                                     real_system=True, phase_no=5)
     checks(len(k1_main) == 2, f"captured K1 systems of {sorted(first)}")
     # 7. the exact solve on the same systems
-    tridiag = tridiag_phase(first, k1_main, checks)
+    exact = tridiag_phase(first, k1_main, checks)
     del first
+    exact_long_phase(dev, checks)
 
     # the timed run, with the launch counts of the main path
     LAUNCHES.clear()
@@ -2274,9 +2553,44 @@ def main(argv):
           pcg_kernel_fit_s=fit_s, pcg_kernel_residual_px=residual,
           slower_than_pcg_kernel=tri_s / fit_s,
           solve_device_launches_per_lm_trip={
-              k: v["device_launches_per_solve"] for k, v in tridiag.items()},
+              k[len("tridiag_"):]: v["device_launches_per_solve"]
+              for k, v in exact.items() if k.startswith("tridiag_")},
           lm_trips=tri_trips)
     del run_tri, st2t
+
+    # the same fit with the other exact solve, cyclic reduction, once
+    run_cr = build_fit(w, "cr", dev)
+    LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st1c, st2c = run_cr(*w["args"])
+    torch.cuda.synchronize()
+    cr_s = time.perf_counter() - t0
+    residual_cr = full_batch_residual(w, *write_back(w, st2c))
+    cr_gap = abs(residual_cr - residual_tri)
+    ok = bool(np.isfinite(residual_cr) and residual_cr < RESIDUAL_MAX_PX
+              and cr_gap <= CR_TRIDIAG_GAP_MAX_PX
+              and LAUNCHES["arrow_pcg"] == 0)
+    checks(ok, f"cr fit: full-batch residual {residual_cr} px, "
+               f"{cr_gap} px from tridiag's (max {CR_TRIDIAG_GAP_MAX_PX}), "
+               f"K1 launches {LAUNCHES['arrow_pcg']}")
+    phase("5 main_path_cr", ok=ok, linear="cr", fit_s=cr_s,
+          stage1_ms=run_cr.timings["stage1_s"] * 1e3,
+          stage2_ms=run_cr.timings["stage2_s"] * 1e3,
+          frames_per_s=n / cr_s, stage1_iters_run=int(st1c.iters_run),
+          stage2_iters_run_max=int(st2c.iters_run.max()),
+          stage2_converged=int(st2c.converged.sum()),
+          full_batch_residual_px=residual_cr, tridiag_residual_px=residual_tri,
+          gap_to_tridiag_px=cr_gap, tridiag_fit_s=tri_s,
+          faster_than_tridiag=tri_s / cr_s, pcg_kernel_fit_s=fit_s,
+          stage1_cost=float(st1c.cost), tridiag_stage1_cost=float(st1t.cost),
+          solve_device_launches_per_lm_trip={
+              k[len("cr_"):]: v["device_launches_per_solve"]
+              for k, v in exact.items() if k.startswith("cr_")},
+          lm_trips=int(st1c.iters_run) + int(st2c.iters_run.max()))
+    del run_cr, st1c, st2c
+    jvp_phase(w, first_asm.get((len(w["starts"]), WSIZE)), dev, checks)
+    del first_asm
 
     k3, k3_launches, k3_setup_launches = render_phase(
         w, frame_params, shp, verts, fit_s, checks)
@@ -2290,6 +2604,8 @@ def main(argv):
     api_phase(w, dev, checks)
     # 11. the multi-device path on one rank over NCCL
     mesh_phases(w, st1, st1t, st2, single_ref, dev, checks)
+    # 12. the host runtime: the native parser and fill
+    host_native_phase(w, verts, checks)
     fit_profile(w, dev, checks)
 
     foreign = sorted(m for m in sys.modules

@@ -47,6 +47,17 @@ FOCAL_FACTOR = 0.9
 # Initial body placement: this many metres in front of the camera.
 INIT_ROOT_DEPTH = 3.0
 
+# Skeleton-edge table for keypoint visualizations. The reference declares
+# this and never uses it (src/main_single_frame.cpp:32-37); kept for
+# drop-in parity and available to plotting tools.
+BONES = np.array(
+    [[1, 2], [1, 4], [2, 5], [4, 7], [5, 8],
+     [16, 17], [15, 16], [15, 17],
+     [16, 18], [17, 19], [18, 20], [19, 21],
+     [1, 16], [2, 17]],
+    dtype=np.int32,
+)
+
 # SMPL topology dimensions (standard basicModel_{f,m}_lbs_10_207_0).
 SMPL_NUM_JOINTS = 24
 SMPL_NUM_SHAPES = 10

@@ -1,5 +1,12 @@
 """Costs of the fits (port of ``smpltpu/energy``)."""
 
+from smpltpu_torch.energy.params import (  # noqa: F401
+    N_FRAME_PARAMS,
+    FrameParams,
+    frame_param_layout,
+    pack_frame_params,
+    unpack_frame_params,
+)
 from smpltpu_torch.energy.priors import (  # noqa: F401
     GMMPrior,
     gmm_pose_prior_residual,

@@ -39,6 +39,17 @@ class FrameParams(NamedTuple):
     joint_aa: torch.Tensor  # (..., nJ-1, 3) for joints 1..nJ-1
 
 
+def pack_frame_params(fp: FrameParams) -> torch.Tensor:
+    """The flat vector of one frame's unpacked parameters (inverse of
+    :func:`unpack_frame_params` for a single frame)."""
+    return torch.cat([
+        torch.reshape(fp.scale, (1,)),
+        fp.root_aa,
+        fp.root_t,
+        fp.joint_aa.reshape(-1),
+    ])
+
+
 def unpack_frame_params(vec: torch.Tensor,
                         n_joints: int = SMPL_NUM_JOINTS) -> FrameParams:
     lay = frame_param_layout(n_joints)

@@ -8,11 +8,11 @@ kintree, template vertices, shape blendshapes, joint regressor, LBS
 weights, triangle faces. Shapes default to the real SMPL dims but are
 scalable down for fast unit tests.
 
-This is a verbatim copy of ``make_synthetic_model`` from
-``smpltpu/models/synthetic.py`` (numpy only): importing the reference
-module runs ``smpltpu/models/__init__.py``, which imports JAX. The copy is
-pinned array-for-array against the reference by
-``tests/test_torch_import.py``.
+This is a verbatim copy of ``make_synthetic_model`` and
+``make_synthetic_gmm`` from ``smpltpu/models/synthetic.py`` (numpy only):
+importing the reference module runs ``smpltpu/models/__init__.py``, which
+imports JAX. The copies are pinned array-for-array against the reference
+by ``tests/test_torch_import.py``.
 """
 
 from __future__ import annotations
@@ -160,3 +160,26 @@ def make_synthetic_model(
         "joint_shape_reg": joint_shape_reg.astype(dtype),
     }
 
+
+
+def make_synthetic_gmm(n_comps: int = 8, dim: int = 69, seed: int = 0, dtype=np.float64) -> dict:
+    """Deterministic synthetic GMM pose prior with the same keys as
+    :func:`smpltpu_torch.io.load_pose_prior_txt` (8 comps x 69 dims by
+    default, matching data/avatar-model/pose_prior.txt's header)."""
+    rng = np.random.default_rng(seed)
+    weights = rng.dirichlet(np.ones(n_comps))
+    means = 0.3 * rng.normal(size=(n_comps, dim))
+    covs = np.zeros((n_comps, dim, dim))
+    for k in range(n_comps):
+        a = rng.normal(size=(dim, dim)) * 0.05
+        covs[k] = a @ a.T + 0.05 * np.eye(dim)
+    prec = np.array([np.linalg.inv(c) for c in covs])
+    prec_cho = np.array([np.linalg.cholesky(p) for p in prec])
+    _, logdet = np.linalg.slogdet(covs)
+    return {
+        "weights": weights.astype(dtype),
+        "means": means.astype(dtype),
+        "covs": covs.astype(dtype),
+        "prec_cho": prec_cho.astype(dtype),
+        "logdet_cov": logdet.astype(dtype),
+    }

@@ -183,7 +183,7 @@ class _Sharded:
         cfg, f_loc = self.cfg, params.shape[0]
         h_pp, b_pw, h_ww, g_p, g_w_loc = corrected_frame_assembly(
             params, w.expand(f_loc, -1), kp, r0, self.cam, self.spec,
-            cfg.huber_delta)
+            cfg.huber_delta, cfg.jacobian)
         h_pp = h_pp + self.bp2 * self.psel_diag
         g_p = g_p + self.bp2 * self.psel * params
         h_pp = h_pp + (lam2 + lam2_prev)[:, None, None] * self.tmask_diag

@@ -38,7 +38,7 @@ interpolation and stage 2 in one call of solve/two_stage.py; it needs
 --batched-windows --init-from-anchors and no --window-chunk, else a
 warning and the sequential stages), --window-chunk N, --resume,
 --metrics-jsonl, --profile (torch.profiler traces under out_dir/profile),
---jax-render, --pose-prior, --linear tridiag|pcg|pcg_block|pcg_kernel,
+--jax-render, --pose-prior, --linear tridiag|cr|pcg|pcg_block|pcg_kernel,
 --cg-rtol, --multi-start (every frame seeded by its best-of-starts
 single-frame fit), --data-init, --orient-init, --s2-iters, --mesh N.
 
@@ -60,8 +60,8 @@ Differences from the JAX CLI:
     CLI's run the whole solve, which XLA compiles for its iteration
     count): one trip launches every kernel and library call of the solve,
     so the fit is not run twice;
-  * --linear cr and --ckpt-backend orbax are not ported: the command
-    exits with a message naming their ROADMAP.md entry;
+  * --ckpt-backend orbax is not ported (orbax is a JAX library): the
+    command exits with a message naming its ROADMAP.md entry;
   * ``--jax-render`` has no fallback to another rasterizer;
   * ``--window-chunk`` with ``--cg-rtol`` gives each window the result of
     the unchunked batch (the port's PCG, plain and K1, ends each window's
@@ -211,9 +211,6 @@ def parse_args(argv):
 
 def refused(opts) -> str | None:
     """Why the port cannot run these options, or None."""
-    if opts["linear"] == "cr":
-        return ("--linear cr is not ported (ROADMAP.md, 'Do not port'); "
-                "use tridiag, pcg, pcg_block or pcg_kernel")
     if opts["ckpt_backend"] == "orbax":
         return f"--ckpt-backend orbax: {ORBAX_REFUSED}"
     return None
@@ -409,11 +406,11 @@ def _run(opts, dev, mesh_n, mesh) -> int:
         elif mesh is not None:
             # frames sharded over the mesh: the anchor batch padded to a
             # multiple of the mesh size with frame_valid = 0 rows
-            if opts["linear"] == "tridiag":
+            if opts["linear"] in ("tridiag", "cr"):
                 # the exact elimination is sequential across frame shards
-                print("[INFO] --linear tridiag applies to the single-chip/"
-                      "window solves; sharded stage-1 uses the distributed "
-                      "PCG", file=sys.stderr)
+                print(f"[INFO] --linear {opts['linear']} applies to the "
+                      "single-chip/window solves; sharded stage-1 uses the "
+                      "distributed PCG", file=sys.stderr)
             pad = (-n_a) % math.lcm(mesh_n, mesh.size)
             a_p = np.tile(default_pose, (n_a + pad, 1))
             a_p[:n_a] = poses[anchor_idx]

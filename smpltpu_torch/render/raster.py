@@ -5,13 +5,12 @@ package.
 Project camera-space vertices with the pinhole model, backface-cull
 (n.z >= 0 skipped), flat-shade gray 220 * clamp(n_hat . view, 0, 1),
 painter's sort far-to-near by mean triangle depth, fill. The geometry stage
-is vectorized numpy; the fill uses cv2 when it is installed and a numpy
-half-plane rasterizer otherwise. (The original's third fill, the JAX
-package's native C library, has no counterpart here.) The numpy fill is
-vectorized over faces here, where the original loops over them one at a
-time: a machine without cv2 paints every frame of the CLI through it
-(~0.9 s a frame of the full-width body at 480 x 270 in the loop). It sets
-the same pixels to the same colours. The on-device z-buffer is
+is vectorized numpy; the fill is the original's order: cv2 when it is
+installed, else the host runtime's C++ fill (``smpltpu_torch.native``);
+where neither is there the overlay raises, naming both. The numpy
+half-plane fill, ``_fill_triangles_numpy``, is the plain version the C++
+fill is held to, pixel for pixel; it is vectorized over faces here, where
+the original loops over them one at a time. The on-device z-buffer is
 ``render/zbuffer.py``.
 """
 
@@ -136,8 +135,13 @@ def render_mesh_overlay(
                 cv2.fillConvexPoly(img, p, (int(c), int(c), int(c)),
                                    cv2.LINE_AA)
         else:
-            _fill_triangles_numpy(
-                img, tris, np.stack([gray] * 3, axis=-1).astype(np.uint8))
+            from smpltpu_torch import native
+            try:
+                native.fill_triangles(img, tris, gray)
+            except native.NativeBuildError as e:
+                raise RuntimeError(
+                    "render_mesh_overlay needs cv2 or the host runtime's "
+                    f"fill, and has neither: {e}") from e
     if wireframe:
         pts = np.round(tris).astype(np.int32)
         if _HAS_CV2:

@@ -1,6 +1,7 @@
 """Solvers (port of ``smpltpu/solve``): the batched LM with its exact trust
 region and the single-frame fit on it, the multi-frame LM, its exact
-block-tridiagonal solve, the chunked window fit, the fused two-stage
+block-tridiagonal solves (elimination and cyclic reduction), the chunked
+window fit, the fused two-stage
 pipeline, the data-driven frame initialization with its multi-start
 fits, and the online (streaming) fit over a CUDA graph of one LM trip."""
 
@@ -43,5 +44,8 @@ from smpltpu_torch.solve.single_frame import (  # noqa: F401
     fit_frames,
     make_single_frame_problem,
 )
-from smpltpu_torch.solve.tridiag import block_tridiag_solve  # noqa: F401
+from smpltpu_torch.solve.tridiag import (  # noqa: F401
+    block_tridiag_solve,
+    block_tridiag_solve_cr,
+)
 from smpltpu_torch.solve.two_stage import build_fused_two_stage  # noqa: F401

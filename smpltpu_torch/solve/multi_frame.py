@@ -15,21 +15,30 @@ the convergence-exit ``lax.while_loop`` becomes a masked Python loop:
     ``converged.all()`` is read on the host once per trip (one device sync
     per LM iteration).
 
-The arrowhead GN system of each step goes to ``linear="tridiag"`` (the
-default: the exact solve, block-tridiagonal elimination of the pose
-blocks by :mod:`smpltpu_torch.solve.tridiag` and the shape Schur
-complement on top), ``linear="pcg"`` (the plain PyTorch PCG loop, any
-dtype and device) or ``linear="pcg_kernel"`` (K1, the CUDA kernel of
-:mod:`smpltpu_torch.ops.cg`, for float32 CUDA tensors; the plain loop on
-the CPU), or ``linear="pcg_block"`` (the plain loop with a block-diagonal
-preconditioner: the (P, P) blocks of the fit's first linearization and its
-nS x nS shape block, inverted once per fit; K1 stays Jacobi-only). The PCG
-options run the same recursion. "cr" is not ported (ROADMAP.md, "Do not
-port").
+The arrowhead GN system of each step goes to one of the reference's five
+solvers, ``cfg.linear``:
+
+  * ``"tridiag"`` (the default) and ``"cr"``: the exact solve, the pose
+    blocks' block-tridiagonal system by :mod:`smpltpu_torch.solve.tridiag`
+    (``tridiag``: elimination in the Thomas order, ~2F sequential
+    factorizations; ``cr``: cyclic reduction, ceil(log2 F) levels of
+    batched ones) and the shape Schur complement on top;
+  * ``"pcg"``: the plain PyTorch PCG loop, any dtype and device;
+  * ``"pcg_kernel"``: K1, the CUDA kernel of :mod:`smpltpu_torch.ops.cg`,
+    for float32 CUDA tensors (the plain loop on the CPU);
+  * ``"pcg_block"``: the plain loop with a block-diagonal preconditioner,
+    the (P, P) blocks of the fit's first linearization and its nS x nS
+    shape block inverted once per fit (K1 stays Jacobi-only).
+
+The PCG options run the same recursion. ``cfg.jacobian`` picks how the
+normal equations are assembled (:func:`corrected_frame_assembly`): the
+closed-form Jacobian (``"analytic"``, the default) or forward-mode
+differentiation of the corrected residuals (``"jvp"``).
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -44,15 +53,24 @@ from smpltpu_torch.ops import cg as cg_ops
 from smpltpu_torch.ops.cg import window_dot
 from smpltpu_torch.solve.lm import (
     _huber_rho,
+    huber_correct_weight,
     huber_correct_weight_and_slope,
 )
-from smpltpu_torch.solve.tridiag import block_tridiag_solve
+from smpltpu_torch.solve.tridiag import block_tridiag_solve, block_tridiag_solve_cr
+
+# forward-mode AD levels are process-wide in torch, not per thread: ranks
+# run as threads (parallel/mesh.py::run_ranks) take turns in the jvp pushes
+_FORWARD_AD = threading.Lock()
+LINEAR_SOLVERS = ("tridiag", "cr", "pcg", "pcg_block", "pcg_kernel")
+JACOBIANS = ("analytic", "jvp")
 
 
 class MultiFrameConfig(NamedTuple):
-    """The reference's config under the same names, less ``cg_unroll``
-    (XLA loop unrolling) and ``jacobian`` (only the analytic Jacobian is
-    ported)."""
+    """The reference's config: its fields, in its order, with its defaults,
+    so ``MultiFrameConfig(**jax_cfg._asdict())`` builds the same config.
+    ``cg_unroll`` is accepted and changes nothing: in the reference it is
+    the unroll factor of XLA's fixed-trip CG loop, whose iterate it leaves
+    as it is; the port's CG loops are not compiled."""
 
     beta_pose: float
     beta_shape: float
@@ -70,8 +88,10 @@ class MultiFrameConfig(NamedTuple):
     dogleg_init_radius: float = 1.0
     linear: str = "tridiag"
     cg_iters: int = 64
+    cg_unroll: int = 1
     cg_rtol: float = 0.0
     fused_cost: bool = False
+    jacobian: str = "analytic"
 
 
 class MultiFrameState(NamedTuple):
@@ -104,17 +124,38 @@ def _per_window(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
+def _normal_pieces(jp, jw, r):
+    """(J_p^T J_p, J_p^T J_w, J_w^T J_w, J_p^T r, J_w^T r), batched."""
+    jp_t, jw_t = jp.transpose(-1, -2), jw.transpose(-1, -2)
+    return (jp_t @ jp, jp_t @ jw, jw_t @ jw,
+            (jp_t @ r[..., None])[..., 0], (jw_t @ r[..., None])[..., 0])
+
+
 def corrected_frame_assembly(p_f, w, kp_f, r0_f, cam: Camera,
                              spec: SkeletonSpec, huber_delta: float,
+                             jacobian: str = "analytic",
                              with_cost: bool = False):
     """Normal-equation pieces of the Huber-CORRECTED keypoint residuals
     c = sqrt(rho(s)/s) r of every frame, batched over leading axes:
-    p_f (..., P), w (..., nS), kp_f (..., K, 4), r0_f (..., 3, 3).
-    Returns (J_p^T J_p, J_p^T J_w, J_w^T J_w, J_p^T c, J_w^T c[, ||c||^2]).
+    p_f (..., P), w (..., nS) broadcasting against p_f's leading axes,
+    kp_f (..., K, 4), r0_f (..., 3, 3). Returns (J_p^T J_p, J_p^T J_w,
+    J_w^T J_w, J_p^T c, J_w^T c[, ||c||^2]).
 
-    The analytic Jacobian is corrected per 2-row block by the rank-1 rule
-    J_c = hw J + 2 hw'(s) b (b^T J), with hw' in closed form
-    (solve/lm.py::huber_correct_weight_and_slope)."""
+    ``jacobian="analytic"``: the closed-form Jacobian, corrected per 2-row
+    block by the rank-1 rule J_c = hw J + 2 hw'(s) b (b^T J), with hw' in
+    closed form (solve/lm.py::huber_correct_weight_and_slope).
+    ``"jvp"``: forward mode through c itself, one tangent per parameter
+    (P + nS of them, all pushed at once by ``torch.func.vmap`` over
+    ``torch.func.jvp``; the primal runs once), as the reference's
+    ``jax.linearize`` and its batched pushes. A frame's residuals depend
+    on its own p and on w only, so the pushed tangent e_k, broadcast over
+    the frames, gives every frame's column k at once. At a masked row
+    (s = 0) the weight's constant branch gives a zero tangent."""
+    if jacobian not in JACOBIANS:
+        raise ValueError(f"unknown jacobian {jacobian!r} (analytic | jvp)")
+    if jacobian == "jvp":
+        return _jvp_assembly(p_f, w, kp_f, r0_f, cam, spec, huber_delta,
+                             with_cost)
     r_raw, jp_raw, jw_raw = keypoint_residuals_and_jacobian(
         p_f, w, kp_f, cam, spec, r0_f)
     blocks = r_raw.unflatten(-1, (-1, 2))                         # (..., K, 2)
@@ -130,24 +171,56 @@ def corrected_frame_assembly(p_f, w, kp_f, r0_f, cam: Camera,
     jw = (hw3 * jw_b + hwp3 * blocks[..., None]
           * btj_w[..., None, :]).flatten(-3, -2)                  # (..., 2K, nS)
     r = (blocks * hw[..., None]).flatten(-2)                      # (..., 2K)
-    jp_t, jw_t = jp.transpose(-1, -2), jw.transpose(-1, -2)
-    out = (jp_t @ jp, jp_t @ jw, jw_t @ jw,
-           (jp_t @ r[..., None])[..., 0], (jw_t @ r[..., None])[..., 0])
+    out = _normal_pieces(jp, jw, r)
     if with_cost:
         # ||c||^2 == rho(s) by construction: the Huber keypoint cost
         out = out + (torch.sum(hw * hw * s, dim=-1),)
     return out
 
 
-def arrow_tridiag(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w):
+def _jvp_assembly(p_f, w, kp_f, r0_f, cam, spec, huber_delta, with_cost):
+    """``corrected_frame_assembly(..., jacobian="jvp")``."""
+    n_p, n_s = p_f.shape[-1], w.shape[-1]
+
+    def corrected(q, v):
+        r = keypoint_residuals(q, v, kp_f, cam, spec, r0_f)
+        blocks = r.unflatten(-1, (-1, 2))
+        hw = huber_correct_weight(torch.sum(blocks * blocks, dim=-1),
+                                  huber_delta)
+        return (blocks * hw[..., None]).flatten(-2)
+
+    # a primal that is an expanded view (the sharded assembly's w) cannot
+    # carry a tangent
+    p_f, w = p_f.contiguous(), w.contiguous()
+
+    def push(e):
+        return torch.func.jvp(corrected, (p_f, w),
+                              (e[:n_p].expand(p_f.shape),
+                               e[n_p:].expand(w.shape)))
+
+    eye = torch.eye(n_p + n_s, dtype=p_f.dtype, device=p_f.device)
+    with _FORWARD_AD:
+        r, cols = torch.func.vmap(push)(eye)      # (P + nS, ..., 2K) each
+    r = r[0]                                      # the primal, unbatched
+    jac = cols.movedim(0, -1)                     # (..., 2K, P + nS)
+    out = _normal_pieces(jac[..., :n_p], jac[..., n_p:], r)
+    if with_cost:
+        out = out + (torch.sum(r * r, dim=-1),)
+    return out
+
+
+def arrow_tridiag(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
+                  linear: str = "tridiag"):
     """Exact solve of the arrowhead system [T B; B^T C] (dp, dw) = -(g_p,
     g_w) of each window (the reference's ``arrow_tridiag``), in K1's
     argument layout: d_blocks (W, F, P, P), off_scale (W, F-1), tmask (P,),
     b_pw (W, F, P, nS), c_reg (W, nS, nS), g_p (W, F, P), g_w (W, nS).
-    T y = g_p and T Y = B in one block-tridiagonal elimination, then the
-    nS x nS Schur complement. Nothing in it waits for the device."""
+    T y = g_p and T Y = B in one block-tridiagonal solve (``linear``
+    "tridiag": elimination; "cr": cyclic reduction), then the nS x nS
+    Schur complement. Nothing in it waits for the device."""
     rhs = torch.cat([g_p[..., None], b_pw], dim=-1)
-    sol = block_tridiag_solve(d_blocks, off_scale, tmask, rhs)
+    solver = block_tridiag_solve_cr if linear == "cr" else block_tridiag_solve
+    sol = solver(d_blocks, off_scale, tmask, rhs)
     y, cap_y = sol[..., 0], sol[..., 1:]
     schur = c_reg - torch.einsum("wfps,wfpt->wst", b_pw, cap_y)
     rhs_w = -g_w + torch.einsum("wfps,wfp->ws", b_pw, y)
@@ -166,13 +239,11 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
 
     frame_valid masks padding frames: their keypoints must already be
     masked; here it also cuts the temporal coupling across the padding."""
-    if cfg.linear == "cr":
-        raise NotImplementedError(
-            "linear='cr' is not ported (ROADMAP.md, 'Do not port'); use "
-            "'tridiag', 'pcg', 'pcg_block' or 'pcg_kernel'")
-    if cfg.linear not in ("tridiag", "pcg", "pcg_block", "pcg_kernel"):
+    if cfg.linear not in LINEAR_SOLVERS:
         raise ValueError(f"unknown linear solver {cfg.linear!r} "
                          "(tridiag | cr | pcg | pcg_block | pcg_kernel)")
+    if cfg.jacobian not in JACOBIANS:
+        raise ValueError(f"unknown jacobian {cfg.jacobian!r} (analytic | jvp)")
 
     n_joints = len(spec.parents)
     lay = frame_param_layout(n_joints)
@@ -214,7 +285,8 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         with_cost=True also returns the objective at (params, w), the
         keypoint part read off the corrected residuals."""
         pieces = corrected_frame_assembly(params, w[:, None, :], kp, r0, cam,
-                                          spec, cfg.huber_delta, with_cost)
+                                          spec, cfg.huber_delta, cfg.jacobian,
+                                          with_cost)
         h_pp, b_pw, h_ww, g_p, g_w = pieces[:5]
         cost = None
         if with_cost:
@@ -260,8 +332,8 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
 
     def arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w, prec):
         args = (d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w)
-        if cfg.linear == "tridiag":
-            return arrow_tridiag(*args)
+        if cfg.linear in ("tridiag", "cr"):
+            return arrow_tridiag(*args, linear=cfg.linear)
         if cfg.linear in ("pcg", "pcg_block"):
             return cg_ops.arrow_pcg_torch(*args, iters=cfg.cg_iters,
                                           rtol=cfg.cg_rtol, prec=prec)

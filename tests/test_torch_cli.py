@@ -60,11 +60,11 @@ import smpltpu_torch.utils.image as t_image
 import smpltpu_torch.utils.obs as t_obs
 from smpltpu.constants import init_root_rotation
 from smpltpu.models import SMPLModel as JModel
-from smpltpu.models.synthetic import make_synthetic_gmm, make_synthetic_model
+from smpltpu.models.synthetic import make_synthetic_model
 from smpltpu.pipeline import multi as j_multi
 from smpltpu.utils import default_intrinsics as j_intrinsics
 from smpltpu_torch.energy import make_skeleton_spec
-from smpltpu_torch.models import SMPLModel
+from smpltpu_torch.models import SMPLModel, make_synthetic_gmm
 from smpltpu_torch.parallel import run_ranks
 from smpltpu_torch.pipeline import multi as t_multi
 from smpltpu_torch.utils import default_intrinsics
@@ -88,6 +88,7 @@ VIDEO1_KPS = fixture_path("data/keypoints/video1")
 VIDEO1_FRAMES = fixture_path("data/frames_annotated/video1")
 GOLDEN_MESH1 = os.path.join(REPO, "tests", "data",
                             "fullres_golden_video1_mesh1.npz")
+GOLDEN_CR = os.path.join(REPO, "tests", "data", "cli_cr_jax_ref.npz")
 # the golden argv of tests/test_fullres_golden.py with enough stage-2
 # iterations for every window to converge (200 do not; 400, 800 and 1600
 # give the same rows bit for bit)
@@ -588,28 +589,61 @@ def test_cli_count_mismatch_and_usage(dataset, tmp_path, capsys):
     assert "window must exceed overlap" in capsys.readouterr().err
 
 
+# the ids are those of the cases when --linear cr was refused too
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2"], None),
-    (["--linear", "cr"], "Do not port"),
-    (["--ckpt-backend", "orbax"], "Do not port"),
+    pytest.param(["--mesh", "2"], None, id="flags0-None"),
+    pytest.param(["--linear", "cr"], "runs", id="flags1-Do not port"),
+    pytest.param(["--ckpt-backend", "orbax"], "Do not port",
+                 id="flags2-Do not port"),
 ])
 def test_cli_refuses_flags_not_ported(dataset, tmp_path, capsys, flags, item):
-    """--linear cr and --ckpt-backend orbax exit with a message naming
-    their ROADMAP.md entry. --mesh 2 is ported (M14): its two ranks run
-    (here as threads; tests/test_torch_mesh_cli.py holds them to the JAX
-    CLI)."""
+    """--ckpt-backend orbax exits with a message naming its ROADMAP.md
+    entry. --mesh 2 is ported (M14): its two ranks run (here as threads;
+    tests/test_torch_mesh_cli.py holds them to the JAX CLI). --linear cr
+    is ported: it runs, and its log.csv rows are the default exact solve's
+    (--linear tridiag) within the JAX parity bound, 1e-2 px (measured:
+    3.9e-4 px; both are exact, but in f32 the two orders of elimination
+    move the 5-trip params by up to 2e-3)."""
     out = str(tmp_path / "o")
+    argv = list(dataset) + [out, "5", "5"] + NUMERIC[2:] + flags
     if item is None:
-        argv = list(dataset) + [out, "5", "5"] + NUMERIC[2:] + flags
         assert run_ranks(2, lambda mesh: t_multi.main(
             argv, device="cpu", mesh=mesh)) == [0, 0]
         assert "devices visible: 1  mesh size: 2" in capsys.readouterr().out
         assert os.path.isfile(os.path.join(out, "params_multi.npz"))
         return
+    if item == "runs":
+        assert t_multi.main(argv, device="cpu") == 0
+        tri = str(tmp_path / "tridiag")
+        assert t_multi.main(list(dataset) + [tri, "5", "5"] + NUMERIC[2:],
+                            device="cpu") == 0
+        (f_cr, e_cr), (f_tri, e_tri) = _log(out), _log(tri)
+        np.testing.assert_array_equal(f_cr, f_tri)
+        np.testing.assert_allclose(e_cr, e_tri, rtol=0, atol=LOG_ATOL_PX)
+        got, want = (np.load(os.path.join(d, "params_multi.npz"))
+                     for d in (out, tri))
+        np.testing.assert_allclose(got["shape"], want["shape"], rtol=0,
+                                   atol=SHAPE_ATOL)
+        return
     assert t_multi.main(["m.npz", "k", "i", out] + flags, device="cpu") == 1
     err = capsys.readouterr().err
     assert "ROADMAP.md" in err and item in err
     assert not os.path.exists(out)
+
+
+def test_cli_linear_cr_under_mesh_says_so(dataset, tmp_path, capsys):
+    """``--linear cr --mesh 2``: the exact solve applies to the window
+    solves, and stage 1 runs the sharded PCG; the CLI says so in the JAX
+    CLI's words (smpltpu/pipeline/multi.py:383-388)."""
+    out = str(tmp_path / "o")
+    argv = (list(dataset) + [out, "5", "5"] + NUMERIC[2:]
+            + ["--linear", "cr", "--mesh", "2"])
+    assert run_ranks(2, lambda mesh: t_multi.main(
+        argv, device="cpu", mesh=mesh)) == [0, 0]
+    assert ("[INFO] --linear cr applies to the single-chip/window solves; "
+            "sharded stage-1 uses the distributed PCG"
+            in capsys.readouterr().err)
+    assert os.path.isfile(os.path.join(out, "params_multi.npz"))
 
 
 def test_cli_needs_the_card_by_default(dataset, tmp_path, capsys):
@@ -670,6 +704,51 @@ def test_cli_fullres_golden(tmp_path):
     assert params.shape == g["params"].shape and np.isfinite(params).all()
 
 
+@pytest.mark.skipif(not os.path.isdir(VIDEO1_KPS),
+                    reason="reference fixture not mounted")
+def test_cli_fullres_golden_cr(tmp_path):
+    """``--linear cr`` with the golden's argv on video1, against the JAX
+    CLI's ``--linear cr --mesh 1`` rows (``tests/data/cli_cr_jax_ref.npz``,
+    ``python -m tests.test_torch_cli --record-cr``) at the bound of
+    ``test_cli_fullres_golden``: the reference's spread on each row (the
+    pin's perturbed runs) plus 1 % + 0.02 px. Measured on the CPU: at most
+    0.060 px from the JAX cr rows (7 % of the bound on that row), 0.076 px
+    from the port's tridiag rows; the JAX cr rows themselves are up to
+    3.53 px from the tridiag pin, on the row where the reference's own
+    spread is that large (frame 19)."""
+    model_path, img_dir = _golden_inputs(str(tmp_path))
+    out = str(tmp_path / "out")
+    assert t_multi.main([model_path, VIDEO1_KPS, img_dir, out]
+                        + GOLDEN_MESH1_ARGV + ["--linear", "cr"],
+                        device="cpu") == 0
+    frames, errs = _log(out)
+    g, ref = np.load(GOLDEN_MESH1), np.load(GOLDEN_CR)
+    np.testing.assert_array_equal(frames, ref["frames"])
+    drift = np.abs(errs - ref["errs"])
+    limit = golden_limit(dict(g, errs=ref["errs"]))
+    assert (drift <= limit).all(), (drift - limit).max()
+    assert errs.mean() < GOLDEN_MEAN_MAX
+    params = np.load(os.path.join(out, "params_multi.npz"))["params"]
+    assert params.shape == ref["params"].shape and np.isfinite(params).all()
+
+
+def record_cr_golden(path=GOLDEN_CR):
+    """The JAX CLI with ``--linear cr --mesh 1`` on the golden's inputs and
+    ``GOLDEN_MESH1_ARGV``: its log.csv rows and params."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as root:
+        model_path, img_dir = _golden_inputs(root)
+        out = os.path.join(root, "out")
+        assert j_multi.main([model_path, VIDEO1_KPS, img_dir, out]
+                            + GOLDEN_MESH1_ARGV
+                            + ["--linear", "cr", "--mesh", "1"]) == 0
+        frames, errs = _log(out)
+        params = np.load(os.path.join(out, "params_multi.npz"))["params"]
+    np.savez(path, frames=frames, errs=errs, params=params,
+             argv=np.asarray(GOLDEN_MESH1_ARGV + ["--linear", "cr"]))
+
+
 def _perturbed_keypoints(src, dst, seed):
     """A copy of the keypoint JSONs with every landmark's x and y scaled
     by 1 + 1e-7 N(0, 1): a change of about one float32 ulp of the
@@ -713,10 +792,15 @@ def record_mesh1_golden(path=GOLDEN_MESH1, seeds=tuple(range(1, 11))):
 
 
 if __name__ == "__main__":
-    # python -m tests.test_torch_cli --record-golden: rewrite the pin
+    # python -m tests.test_torch_cli --record-golden: rewrite the pin;
+    # --record-cr: the JAX CLI's --linear cr rows
     # (under the test session's JAX settings: 8 virtual CPU devices, x64)
     import tests.conftest  # noqa: F401
 
-    if sys.argv[1:] != ["--record-golden"]:
-        raise SystemExit("usage: python -m tests.test_torch_cli --record-golden")
-    record_mesh1_golden()
+    if sys.argv[1:] == ["--record-golden"]:
+        record_mesh1_golden()
+    elif sys.argv[1:] == ["--record-cr"]:
+        record_cr_golden()
+    else:
+        raise SystemExit("usage: python -m tests.test_torch_cli "
+                         "--record-golden | --record-cr")

@@ -176,9 +176,10 @@ def test_fused_two_stage_matches_jax(small_model_dict, jax_side):
 
 def test_linear_options(small_model_dict):
     """pcg_kernel takes the same plain loop on the CPU; cyclic reduction
-    is not ported and says so (the exact "tridiag" solve is held against
-    the reference in tests/test_torch_tridiag.py, the block preconditioner
-    in tests/test_torch_single.py)."""
+    ("cr") gives the fit of the exact "tridiag" solve (both held against
+    the reference in tests/test_torch_tridiag.py and test_torch_cr.py, the
+    block preconditioner in tests/test_torch_single.py); an unknown name
+    raises."""
     rig = make_rig(small_model_dict, 4, seed=10)
     outs = {}
     for lin in ("pcg", "pcg_kernel"):
@@ -191,10 +192,17 @@ def test_linear_options(small_model_dict):
                         torch.as_tensor(rig["kp"]), torch.as_tensor(rig["r0"]))
     for a, b in zip(outs["pcg"], outs["pcg_kernel"]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_multi_fitter(rig["spec"], rig["cam"],
-                           MultiFrameConfig(**dict(CFG, linear="cr")), 10,
-                           device=CPU, dtype=F64)
+    # the two exact solves (elimination and cyclic reduction) give one fit
+    exact = {}
+    for lin in ("tridiag", "cr"):
+        exact[lin] = build_multi_fitter(
+            rig["spec"], rig["cam"],
+            MultiFrameConfig(**dict(CFG, linear=lin, max_iters=4,
+                                    fused_cost=True)), 10,
+            device=CPU, dtype=F64)(
+            torch.as_tensor(_p0(4)), torch.zeros(10, dtype=F64),
+            torch.as_tensor(rig["kp"]), torch.as_tensor(rig["r0"]))
+    _assert_results_match(exact["cr"], exact["tridiag"])
     with pytest.raises(ValueError, match="unknown linear solver"):
         build_multi_fitter(rig["spec"], rig["cam"],
                            MultiFrameConfig(**dict(CFG, linear="pcg-kernel")),

@@ -36,14 +36,14 @@ from smpltpu.constants import N_KP_SLOTS, USE_SMPL, init_root_rotation
 from smpltpu.energy import GMMPrior as JGMM
 from smpltpu.energy import make_skeleton_spec as j_spec
 from smpltpu.models import SMPLModel as JModel
-from smpltpu.models.synthetic import make_synthetic_gmm, make_synthetic_model
+from smpltpu.models.synthetic import make_synthetic_model
 from smpltpu.solve import build_fitter as j_build_fitter
 from smpltpu.solve import make_single_frame_problem as j_problem
 from smpltpu.utils import default_intrinsics as j_intrinsics
 from smpltpu_torch.energy import project, skeleton_joints_cam
 from smpltpu_torch.energy.priors import GMMPrior
 from smpltpu_torch.energy.reproj import make_skeleton_spec
-from smpltpu_torch.models import SMPLModel
+from smpltpu_torch.models import SMPLModel, make_synthetic_gmm
 from smpltpu_torch.solve import init as t_init
 from smpltpu_torch.solve import online as t_online
 from smpltpu_torch.solve.lm import LMState

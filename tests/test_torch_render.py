@@ -382,7 +382,8 @@ def test_raster_constants_match_the_kernel_source():
 
 
 def test_painter_copy_matches_numpy_fill(small_model_dict, monkeypatch):
-    """The port's host painter equals ``smpltpu.render.raster`` on the numpy
+    """The port's host painter without cv2 (its C++ fill,
+    ``smpltpu_torch.native``) equals ``smpltpu.render.raster`` on the numpy
     fill path (cv2 and the native library switched off on the reference
     side)."""
     monkeypatch.setattr(j_painter, "_HAS_CV2", False)

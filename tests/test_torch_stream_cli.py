@@ -29,14 +29,13 @@ import numpy as np
 import pytest
 import torch
 
-from smpltpu.models.synthetic import make_synthetic_gmm
 from smpltpu.pipeline import single as j_single
 from smpltpu.pipeline import stream as j_stream
 from smpltpu_torch.constants import MP_MAP, init_root_rotation
 from smpltpu_torch.energy import make_skeleton_spec, project, skeleton_joints_cam
 from smpltpu_torch.io import save_pose_prior_txt, save_smpl_npz
 from smpltpu_torch.models import SMPLModel
-from smpltpu_torch.models.synthetic import make_synthetic_model
+from smpltpu_torch.models.synthetic import make_synthetic_gmm, make_synthetic_model
 from smpltpu_torch.pipeline import single as t_single
 from smpltpu_torch.pipeline import stream as t_stream
 from smpltpu_torch.utils import default_intrinsics
