@@ -20,7 +20,9 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    printed with its launch plan (cluster size, resident frames, shared
    bytes), run twice and required bitwise identical. Then the stage-2
    (67 x 20) and stage-1 (1 x 100) shapes timed under the plan's cluster
-   size and one alternative (the layouts).
+   size and one alternative (the layouts). ``3 k1_long``: the same at the
+   long-video shapes, 64 CG steps: (1, 1000), (1, 10 000) (the vectors in
+   global scratch) and (667, 20), each with its plan and scratch bytes.
 4. K2 (blendshapes + skinning) against its plain version: 100 frames of
    the full-width model (timed), 1 and 37 frames (a ragged frame tile),
    the 300-vertex model, and a 7-shape model through the kernel's
@@ -122,7 +124,31 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    built with g++ at first use) and by the Python one, bit-equal; one
    fitted frame at 1280 x 720 filled by the C++ fill and the numpy fill,
    bit-equal; each timed.
-12. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+12. the long-video configuration of bench.py (BENCH_FRAMES 10 000 and
+   100 000, BENCH_CHUNK=67, BENCH_CG_ITERS=64; ``long_phases``), each run
+   from zeroed launch counts: ``5 long_10k_chunked`` (the multi CLI's
+   sequential route for long videos, ``--batched-windows
+   --init-from-anchors --window-chunk 67``: stage 1 on the 1000 anchors as
+   one window, the anchors to the host, the CLI's interpolation loop and
+   window packing, stage 2 through ``build_chunked_window_fit``; each
+   part timed; K1's launches by shape against the trips; the full-batch
+   residual; the first K1 system of each shape against the plain
+   version), ``5 long_10k_batch`` (the same video through the fused
+   two-stage fit, stage 2 as one batch of 667 windows, within
+   LONG_GAP_MAX_PX of the chunked residual; ``chunk_gap``: where the two
+   differ per window, in cost and in the keypoints, and the worst
+   window's chunk against one batch in float64 on the same inputs, the
+   CG held to the port's PCG tolerance and the exact solve to 1e-8),
+   ``6 render_10k`` (``render_frames`` over the 10 000 fitted frames at
+   1280 x 720: 100 K2 and 100 K3 launches, every frame covered, three
+   frames against the host painter, the memory beside the output; the
+   last 100-frame chunk again on its own inputs, K2 against plain ``lbs``
+   and K3 and the render's frames pixel-exact against the plain
+   rasterizer, each timed), ``5 long_100k_stage1`` (the 100 000-frame
+   video's stage 1 alone: 10 000 anchors in one window, K1 at 1 x 10 000,
+   75 of bench.py's 150 trips; the anchors' residual, peak memory, its
+   first K1 system against plain, three trips under the profiler).
+13. one more fit under torch.profiler, at a fifth of the depth (30 + 12
    LM iterations: the profiler takes half a minute to digest a full
    fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
    launches, the idle share; last, so that the profiler's cost touches
@@ -133,6 +159,18 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
 times K1 instead under every cluster size at the stage shapes and a few
 others (phases 1-3, no main path and no result line): the measurement
 behind ``ops/cg.py::k1_plan``'s rule.
+
+    python3 chip_smoke.py --long
+
+runs phases 1-3 (limits), then bench.py's whole 100 000-frame video
+(``5 long_100k``: the CLI's sequential route, stage 1 on 10 000 anchors,
+the host interpolation of 100 000 frames, 6667 windows in chunks of 67;
+``5 long_100k_batch``: the fused fit, the 6667 windows as one batch), its
+render at
+bench.py's default 270 x 480 (``6 render_100k``) and the
+10 000-frame chunked fit with ``linear="pcg_block"`` beside
+``pcg_kernel`` (``5 long_10k_pcg_block``), and ends with the result line
+(no kernels' line); a few minutes, too slow for the default run.
 
     python3 chip_smoke.py --k2
 
@@ -154,6 +192,8 @@ ends the run with exit code 1 and no result line; so does a machine with
 no CUDA device, or a directory without the port.
 """
 
+import contextlib
+import functools
 import json
 import os
 import re
@@ -242,6 +282,9 @@ CLI_STREAM_RUNS = (
 )
 CLI_STREAM_GAP_MAX_PX, CLI_STREAM_ROWS_AGREE_PX = 0.05, 1e-4
 H_R, W_R = 1280, 720          # render size: the bench camera at full size
+# the render's device memory beside its output (gray and covered, 2 bytes
+# a pixel): phase 6's bound less its 1000 frames' output
+RENDER_WORK_MAX_GIB = RENDER_PEAK_MAX_GIB - 1000 * H_R * W_R * 2 / 2 ** 30
 DEV_IN_HOST_MIN, HOST_IN_DEV_MIN = 0.95, 0.80   # tests/test_jax_raster.py
 # phase 11: the multi-device path on one rank; cli_mesh's argvs with the
 # port's CPU run's log.csv mean (smpltpu_torch.pipeline.multi / single
@@ -297,6 +340,40 @@ K2_CASES = (("b100", {}, 100), ("b1", {}, 1), ("b37", {}, 37),
 # --k1-layouts: every cluster size at these (W, F, P) shapes
 K1_LAYOUT_SHAPES = ((67, 20, 76), (1, 100, 76), (3, 33, 76), (1, 150, 76),
                     (1, 400, 76), (1, 100, 31))
+# the long-video configuration of bench.py (BENCH_FRAMES=10000 and
+# 100000, BENCH_CHUNK=67, BENCH_CG_ITERS=64; bench.py:96-103, :148-160,
+# :236-241): stage 1 on every 10th frame as one window, stage 2 in chunks
+# of 67 windows, 64 CG steps
+LONG_FRAMES, LONG_FRAMES_XL = 10_000, 100_000
+LONG_CHUNK, LONG_CG_ITERS = 67, 64
+LONG_GAP_MAX_PX = 0.01         # the 10k video chunked against one batch
+# the 10k stage 2 in chunks against one batch. float64 on the same
+# inputs: the exact solve over all trips to tests/test_torch_tridiag.py's
+# 1e-9 in cost and 1e-8 in params; in the CG's first trip, the systems a
+# chunk and the batch hand the CG within SYSTEM_GAP of their scale, and
+# the CG on one system, in the batch and alone, within SYSTEM_GAP through
+# CG_SHALLOW_STEPS steps (a window's CG reads its own window only; the
+# batch width moves the summation order, ~1e-16). The CG's gap after
+# PCG_GAP_TRIPS trips and CG_GAP_STEPS steps is reported. float32, the two
+# runs: the final cost of every window that converged in both within the
+# size a wrong term moves it by (1e-3, tests/test_torch_fit.py), the
+# median window within the port's PCG cost tolerance (2e-5)
+EXACT_GAP_COST, EXACT_GAP_PARAM = 1e-9, 1e-8
+SYSTEM_GAP, CG_SHALLOW_STEPS = 1e-12, 16
+PCG_GAP_TRIPS = (1, 5, 20, S2_ITERS)
+CG_GAP_STEPS = (1, 2, 4, 8, 16, 32, 64)
+CONVERGED_COST_GAP, MEDIAN_COST_GAP = 1e-3, 2e-5
+LONG_PROFILE_TRIPS = 3         # the profiled window of the 100k stage 1
+# the 100k stage 1 alone runs half of bench.py's 150 trips: at ~98 ms a
+# trip, device bound, the whole of it added 15 s to the smoke (--long runs
+# all 150 as part of the whole video)
+LONG_XL_S1_ITERS = 75
+# phase 3's long K1 cases (label, W, F): the 10k and 100k videos' stage 1
+# and the 10k video's stage 2 as one batch
+K1_LONG = (("1x1000", 1, 1000), ("1x10000", 1, 10000), ("667x20", 667, 20))
+# --long's render: bench.py's default scale, 0.375 of the 720 x 1280
+# camera (bench.py:378-380), H x W
+H_LONG, W_LONG = 480, 270
 
 
 def bound(n_bytes, n_flops):
@@ -466,7 +543,8 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     rule = ("within 2x the plain f32 distance from f64" if real_system
             else f"within {K1_TOL} of scale of the plain version")
     checks(ok, f"K1 {label}: kernel not {rule}")
-    phase(f"{phase_no} k1_{label}", ok=ok, **out)
+    out["ok"] = ok
+    phase(f"{phase_no} k1_{label}", **out)
     return out
 
 
@@ -509,6 +587,15 @@ def k1_layouts(rng, dev, checks, every=False):
         del args, want
 
 
+@functools.lru_cache(maxsize=None)
+def synthetic_model(n_verts=None):
+    """The synthetic SMPL model of bench.py (seeded), made once per width:
+    its host construction takes seconds, and every workload shares it."""
+    from smpltpu_torch.models import make_synthetic_model
+    return make_synthetic_model(**({} if n_verts is None
+                                   else {"n_verts": n_verts}))
+
+
 def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
     """bench.py's synthetic video (bench.py:85-132): smooth ground-truth
     motion, projected keypoints with 1 px noise, numpy default_rng(0),
@@ -521,13 +608,12 @@ def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
         project,
         skeleton_joints_cam,
     )
-    from smpltpu_torch.models import SMPLModel, make_synthetic_model
+    from smpltpu_torch.models import SMPLModel
     from smpltpu_torch.utils import default_intrinsics
 
     f32 = torch.float32
     rng = np.random.default_rng(0)
-    kw = {} if n_verts is None else {"n_verts": n_verts}
-    model_dict = make_synthetic_model(**kw)
+    model_dict = synthetic_model(n_verts)
     model = SMPLModel.from_dict(model_dict, device=device, dtype=f32)
     cam = default_intrinsics(720, 1280, device=device, dtype=f32)
     spec = make_skeleton_spec(model, init_root_rotation(), with_shape=True)
@@ -580,23 +666,101 @@ def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
             "n_frames": n_frames, "use_smpl": USE_SMPL}
 
 
-def build_fit(w, linear, device, depth=1):
-    """The port's fused two-stage fit with bench.py's configs
-    (bench.py:169-172, :216-219), fused cost, 40 CG steps; both stages'
-    LM iterations divided by ``depth``."""
-    import torch
-    from smpltpu_torch.solve import MultiFrameConfig, build_fused_two_stage
+def fit_configs(linear, depth=1, cg_iters=CG_ITERS):
+    """bench.py's two stage configs (bench.py:169-172, :216-219), fused
+    cost, ``cg_iters`` CG steps; both stages' LM iterations divided by
+    ``depth``."""
+    from smpltpu_torch.solve import MultiFrameConfig
 
     common = dict(beta_pose=5.0, lambda_temporal=3.0, linear=linear,
-                  cg_iters=CG_ITERS, fused_cost=True)
-    cfg1 = MultiFrameConfig(beta_shape=25.0, max_iters=S1_ITERS // depth,
-                            **common)
-    cfg2 = MultiFrameConfig(beta_shape=1e5, max_iters=S2_ITERS // depth,
-                            **common)
-    return build_fused_two_stage(w["spec"], w["cam"], cfg1, cfg2, 10,
+                  cg_iters=cg_iters, fused_cost=True)
+    return (MultiFrameConfig(beta_shape=25.0, max_iters=S1_ITERS // depth,
+                             **common),
+            MultiFrameConfig(beta_shape=1e5, max_iters=S2_ITERS // depth,
+                             **common))
+
+
+def build_fit(w, linear, device, depth=1, cg_iters=CG_ITERS):
+    """The port's fused two-stage fit with ``fit_configs``: stage 2 as
+    one batch of all windows."""
+    import torch
+    from smpltpu_torch.solve import build_fused_two_stage
+
+    return build_fused_two_stage(w["spec"], w["cam"],
+                                 *fit_configs(linear, depth, cg_iters), 10,
                                  w["anchor_idx"], w["starts"], WSIZE,
                                  w["n_frames"], device=device,
                                  dtype=torch.float32)
+
+
+def cli_windows(w, st1, dtype=None):
+    """The multi CLI's stage-2 inputs from a stage-1 result
+    (pipeline/multi.py, ``--batched-windows --init-from-anchors``): the
+    anchors to the host, its interpolation loop over every frame, its
+    window packing, the upload. -> ((params, shape, keypoints, R0,
+    frame_valid) of all windows on st1's device, interpolation s, packing
+    s)."""
+    import torch
+    from smpltpu_torch.energy.params import init_frame_params
+    from smpltpu_torch.pipeline.multi import (
+        interpolate_from_anchors,
+        window_inputs,
+    )
+    dev, dtype = st1.params.device, dtype or st1.params.dtype
+    n = w["n_frames"]
+    t0 = time.perf_counter()
+    anchor_params = st1.params.cpu().numpy()
+    shape_w = st1.shape.cpu().numpy()
+    default_pose = init_frame_params(device="cpu",
+                                     dtype=torch.float32).numpy()
+    poses = np.tile(default_pose, (n, 1))
+    interpolate_from_anchors(poses, w["anchor_idx"], anchor_params)
+    t1 = time.perf_counter()
+    r0 = np.tile(w["r0c"], (n, 1, 1))
+    packs = [window_inputs(s, WSIZE, poses, r0, w["kp"], default_pose)
+             for s in w["starts"]]
+    args = [torch.as_tensor(np.stack([p[j] for p in packs]), dtype=dtype,
+                            device=dev) for j in (1, 2, 3, 4)]
+    args.insert(1, torch.as_tensor(np.tile(shape_w, (len(packs), 1)),
+                                   dtype=dtype, device=dev))
+    torch.cuda.synchronize()
+    return tuple(args), t1 - t0, time.perf_counter() - t1
+
+
+def build_cli_sequential(w, linear, device, chunk, cg_iters=CG_ITERS):
+    """The multi CLI's sequential route for long videos
+    (``--batched-windows --init-from-anchors --window-chunk chunk``;
+    bench.py's BENCH_CHUNK recipe, bench.py:148-160): stage 1 by
+    ``build_multi_fitter`` on the anchors, ``cli_windows``, then stage 2
+    through ``build_chunked_window_fit``. run(p0a, shape0, kpa, r0a) ->
+    (stage-1 result, stage-2 result); ``run.timings``: the wall seconds of
+    stage 1, the host interpolation, the packing and stage 2."""
+    import torch
+    from smpltpu_torch.solve import build_chunked_window_fit, build_multi_fitter
+
+    cfg1, cfg2 = fit_configs(linear, cg_iters=cg_iters)
+    fit1 = build_multi_fitter(w["spec"], w["cam"], cfg1, 10, device=device,
+                              dtype=torch.float32)
+    fit2 = build_chunked_window_fit(
+        build_multi_fitter(w["spec"], w["cam"], cfg2, 10, device=device,
+                           dtype=torch.float32), chunk)
+
+    def run(p0a, shape0, kpa, r0a):
+        t0 = time.perf_counter()
+        st1 = fit1(p0a, shape0, kpa, r0a)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        args2, interp_s, pack_s = cli_windows(w, st1)
+        t2 = time.perf_counter()
+        st2 = fit2(*args2)
+        torch.cuda.synchronize()
+        run.timings = {"stage1_s": t1 - t0, "interp_s": interp_s,
+                       "pack_s": pack_s,
+                       "stage2_s": time.perf_counter() - t2}
+        return st1, st2
+
+    run.timings = {}
+    return run
 
 
 def write_back(w, st2):
@@ -613,14 +777,16 @@ def write_back(w, st2):
     return fp, st2.shape[0]
 
 
-def full_batch_residual(w, frame_params, shp):
+def full_batch_residual(w, frame_params, shp, frames=None):
     """Mean keypoint reprojection error in pixels over ALL frames and
     slots, under the solver's skeleton model (the estimator bench.py
-    samples at every 8th window and 5th frame)."""
+    samples at every 8th window and 5th frame); ``frames``: the video's
+    frames that ``frame_params`` holds (the anchors), if not all."""
     import torch
     from smpltpu_torch.energy import project, skeleton_joints_cam
     uv = project(skeleton_joints_cam(frame_params, shp, w["spec"]), w["cam"])
-    kp = torch.as_tensor(w["kp"], device=uv.device)
+    kp = torch.as_tensor(w["kp"] if frames is None else w["kp"][frames],
+                         device=uv.device)
     d = torch.linalg.norm(uv[:, w["use_smpl"]] - kp[:, :, 1:3], dim=-1)
     return float(d.mean())
 
@@ -2347,6 +2513,654 @@ def cli_mesh_phases(checks):
     shutil.rmtree(root, ignore_errors=True)
 
 
+def k1_long_phase(rng, dev, checks):
+    """``3 k1_long``: K1 at the long video's shapes (K1_LONG), 64 steps, on
+    random SPD systems through ``k1_compare`` (held to K1_TOL of the plain
+    version, run twice and bitwise identical, timed beside the bound); one
+    line with every case's plan, scratch bytes and times."""
+    cases, ok = {}, True
+    for label, n_w, f in K1_LONG:
+        a = random_arrow_system(rng, n_w, f, dev)
+        c = k1_compare(f"long_{label}", a, LONG_CG_ITERS, 0.0, checks,
+                       reps=(3, 1))
+        del a
+        ok &= c["ok"]
+        cases[label] = {
+            "plan": c["plan"], "scratch_bytes": 4 * c["plan"]["scratch_floats"],
+            "bitwise_repeat": c["bitwise_repeat"],
+            "max_abs_err": max(c["max_abs_err_p"], c["max_abs_err_w"]),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "ms_over_bound": c["ms"] / c["bound_ms"]}
+    phase("3 k1_long", ok=ok, iters=LONG_CG_ITERS, cases=cases)
+    return cases
+
+
+@contextlib.contextmanager
+def first_k1_systems(store):
+    """Within the block, K1's entry keeps a copy of the first system of
+    each (W, F) it is called with in ``store`` ({(W, F): (args, kwargs)}),
+    then launches as always; the fitter looks the entry up on each call."""
+    from smpltpu_torch.ops import cg
+    real = cg.arrow_pcg
+
+    def capture(*a, **k):
+        key = tuple(a[5].shape[:2])
+        if key not in store:
+            store[key] = ([t.clone() for t in a], k)
+        return real(*a, **k)
+    cg.arrow_pcg = capture
+    try:
+        yield store
+    finally:
+        cg.arrow_pcg = real
+
+
+def counted_run(fn):
+    """fn() from zeroed launch counts and peak memory, ended by a device
+    synchronize: (its result, wall s, the launch counts, peak GiB)."""
+    import torch
+    from smpltpu_torch.ops import LAUNCHES
+    LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    return (out, wall_s, dict(LAUNCHES),
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def stage2_k1_launches(st2, n_win, chunk):
+    """The K1 launches a stage 2 of ``n_win`` windows in chunks of
+    ``chunk`` (0: one batch) must make, by shape: each chunk's slowest
+    window's trips at (that chunk's windows, WSIZE)."""
+    want = {}
+    step = chunk if chunk > 0 else n_win
+    for s in range(0, n_win, step):
+        key = f"arrow_pcg@{min(step, n_win - s)}x{WSIZE}"
+        want[key] = want.get(key, 0) + int(st2.iters_run[s:s + step].max())
+    return want
+
+
+def long_fit(w, linear, dev, chunk, checks, label, first=None):
+    """bench.py's long recipe on the workload ``w`` with 64 CG steps, run
+    once from zeroed counts: ``chunk`` > 0, the multi CLI's sequential
+    route with stage 2 in chunks of ``chunk`` windows
+    (``build_cli_sequential``); 0, the fused two-stage fit with stage 2 as
+    one batch. K1's launches by shape held to the loop trips, the
+    full-batch residual to RESIDUAL_MAX_PX. ``first`` collects each K1
+    shape's first system. Returns (the phase's numbers, stage-1 result,
+    stage-2 result)."""
+    if chunk:
+        run = build_cli_sequential(w, linear, dev, chunk,
+                                   cg_iters=LONG_CG_ITERS)
+        args = w["args"][:4]
+    else:
+        run = build_fit(w, linear, dev, cg_iters=LONG_CG_ITERS)
+        args = w["args"]
+    n_win = len(w["starts"])
+    with (first_k1_systems(first) if first is not None
+          else contextlib.nullcontext()):
+        (st1, st2), wall_s, launches, peak = counted_run(lambda: run(*args))
+    trips1 = int(st1.iters_run)
+    want = stage2_k1_launches(st2, n_win, chunk)
+    k1 = {k: v for k, v in launches.items() if k.startswith("arrow_pcg@")}
+    if linear == "pcg_kernel":
+        want[f"arrow_pcg@1x{len(w['anchor_idx'])}"] = trips1
+        checks(k1 == want and launches["arrow_pcg"] == sum(want.values()),
+               f"{label}: K1 launches {k1} != loop trips {want}")
+    else:
+        checks(not k1, f"{label}: {linear} launched K1: {k1}")
+    residual = full_batch_residual(w, *write_back(w, st2))
+    checks(np.isfinite(residual) and residual <= RESIDUAL_MAX_PX,
+           f"{label}: full-batch residual {residual} px")
+    res = {"linear": linear, "frames": w["n_frames"], "windows": n_win,
+           "anchors": len(w["anchor_idx"]),
+           "route": "cli_sequential" if chunk else "fused_two_stage",
+           "chunk": chunk, "chunks": -(-n_win // chunk) if chunk else 1,
+           "cg_iters": LONG_CG_ITERS, "fit_s": wall_s,
+           **{k[:-2] + "_ms": v * 1e3
+              for k, v in run.timings.items()},
+           "frames_per_s": w["n_frames"] / wall_s,
+           "stage1_trips": trips1,
+           "stage2_trips": sum(v for k, v in want.items()
+                               if k.endswith(f"x{WSIZE}")),
+           "stage2_trips_max": int(st2.iters_run.max()),
+           "stage2_converged": int(st2.converged.sum()),
+           "k1_launches": launches.get("arrow_pcg", 0),
+           "k1_launches_by_shape": k1,
+           "full_batch_residual_px": residual, "peak_gib": peak}
+    return res, st1, st2
+
+
+def render_chunk_check(model, params, shp, r0, cam, height, width, gray,
+                       covered, checks, label):
+    """One chunk of ``render_frames`` again, on its own inputs: its
+    vertices as the render makes them (FK, then K2), K2 held to
+    ``lbs_torch`` within K2_ATOL; K3 from those vertices
+    (``rasterize_verts``) and the plain rasterizer on their face setup,
+    and the render's own output for the chunk (``gray``, ``covered``),
+    both pixel-exact against the plain version. Each kernel timed on these
+    inputs beside its plain version and its bound. -> (K2's numbers, K3's
+    numbers), as the result line's rows take them."""
+    import torch
+    from smpltpu_torch.ops import lbs as k2
+    from smpltpu_torch.render.zbuffer import (
+        face_bbox,
+        face_setup,
+        rasterize_torch,
+        rasterize_verts,
+    )
+    from smpltpu_torch.utils.writeback import params_to_pose
+    dev = params.device
+    b = params.shape[0]
+    shapes = shp.expand(b, -1).contiguous()
+    r0 = torch.as_tensor(r0, dtype=torch.float32, device=dev).expand(b, 3, 3)
+    pose = params_to_pose(params, r0, model.num_joints)
+    g_aff, _ = k2.joint_affines(model, shapes, pose.rotations, pose.root_pos)
+    g_aff = g_aff.contiguous()
+    ops = k2.prepare_lbs_operands(model)
+    got = k2.lbs(shapes, g_aff, ops)
+    k2_err = float((got - k2.lbs_torch(shapes, g_aff, ops)).abs().max())
+    checks(k2_err <= K2_ATOL, f"{label}: K2 on the last chunk vs plain "
+                              f"{k2_err} > {K2_ATOL}")
+    n_s = shapes.shape[-1]
+    k2_bound = bound(nbytes(shapes, g_aff, got, ops["v_template_t"],
+                            ops["shapedirs_t"], ops["weights_t"]),
+                     b * model.num_verts * (6 * n_s + 3
+                                            + 24 * model.num_joints + 18))
+    k2_row = {"frames": b, "max_abs_err": k2_err,
+              "ms": graph_ms(lambda: k2.lbs(shapes, g_aff, ops), 50),
+              "plain_ms": cuda_ms(lambda: k2.lbs_torch(shapes, g_aff, ops),
+                                  10),
+              "bound_ms": k2_bound[0], "bound_by": k2_bound[1]}
+
+    verts = got.transpose(1, 2)
+    faces = torch.as_tensor(model.faces, device=dev)
+    intr = (float(cam.fx), float(cam.fy), float(cam.cx), float(cam.cy))
+    st = face_setup(verts, faces, *intr)
+    g_p, c_p = rasterize_torch(st, height, width)
+    g_k, c_k = rasterize_verts(verts, faces, *intr, height, width)
+    k3_err = max(int((g_k.int() - g_p.int()).abs().max()),
+                 int((c_k != c_p).sum()))
+    d_render = int((gray != g_p).sum()) + int((covered != c_p).sum())
+    checks(k3_err == 0 and d_render == 0,
+           f"{label}: K3 on the last chunk differs from the plain version "
+           f"(largest difference {k3_err}); the render's own frames of it "
+           f"differ in {d_render} pixels")
+    k3_bound = k3_bounds(st, verts, faces, height, width)[1]
+    out = (g_k, c_k)
+    k3_row = {"frames": b, "max_abs_err": k3_err,
+              "render_differing_px": d_render,
+              "ms": graph_ms(lambda: rasterize_verts(
+                  verts, faces, *intr, height, width, out=out), 10),
+              "plain_ms": cuda_ms(lambda: face_bbox(
+                  face_setup(verts, faces, *intr), height, width), 5)
+              + cuda_ms(lambda: rasterize_torch(st, height, width), 2),
+              "bound_ms": k3_bound[0], "bound_by": k3_bound[1]}
+    return k2_row, k3_row
+
+
+def render_long(w, frame_params, shp, cam, height, width, checks, label):
+    """``render_frames`` over every fitted frame of ``w`` at height x width
+    from zeroed counts: K2 and K3 (with its setup stage) once per
+    100-frame chunk, every frame covered, the render's memory beside its
+    output under RENDER_WORK_MAX_GIB, and three frames' coverage against
+    the host painter's as in phase 6. Returns the phase's numbers."""
+    import torch
+    from smpltpu_torch.ops import LAUNCHES
+    from smpltpu_torch.pipeline.common import (
+        batched_frame_eval,
+        overlay_image,
+        render_frames,
+    )
+    n = w["n_frames"]
+    base = torch.cuda.memory_allocated()
+    (gray, covered), render_s, launches, peak = counted_run(
+        lambda: render_frames(w["model"], frame_params, shp, w["r0c"], cam,
+                              height, width))
+    n_chunks = -(-n // 100)
+    counts = [launches.get(k, 0) for k in ("lbs", "raster", "raster_setup")]
+    checks(counts == [n_chunks] * 3,
+           f"{label}: K2, K3, K3 setup launches {counts} != {n_chunks} chunks")
+    out_gib = nbytes(gray, covered) / 2 ** 30
+    work_gib = peak - base / 2 ** 30 - out_gib
+    checks(work_gib < RENDER_WORK_MAX_GIB,
+           f"{label}: {work_gib} GiB beside the output >= "
+           f"{RENDER_WORK_MAX_GIB}")
+    checks(tuple(gray.shape) == (n, height, width) and gray.dtype == torch.uint8
+           and tuple(covered.shape) == (n, height, width),
+           f"{label}: render output shape")
+    # by chunk: a sum over all frames at once would widen every pixel to
+    # int64 first (68.7 GiB at 10 000 frames of 1280 x 720)
+    per_frame = torch.cat([covered[s:s + 100].flatten(1).sum(1)
+                           for s in range(0, n, 100)])
+    checks(bool((per_frame > 0).all()),
+           f"{label}: {int((per_frame == 0).sum())} rendered frames are empty")
+    # the last 100-frame chunk, the farthest into the output, on its own
+    s0 = (n - 1) // 100 * 100
+    k2_row, k3_row = render_chunk_check(
+        w["model"], frame_params[s0:], shp, w["r0c"], cam, height, width,
+        gray[s0:], covered[s0:], checks, label)
+    picks = [0, n // 2, n - 1]
+    LAUNCHES.clear()
+    _, verts = batched_frame_eval(
+        w["model"], frame_params[picks], shp.expand(len(picks), -1),
+        np.tile(w["r0c"], (len(picks), 1, 1)), w["kp"][picks], w["cam"])
+    agree = {}
+    for j, k in enumerate(picks):
+        img = np.zeros((height, width, 3), np.uint8)
+        overlay_image(w["model"], verts[j], img, cam)
+        d_in_h, h_in_d = coverage_agreement(gray[k].cpu().numpy() > 0,
+                                            img[..., 0] > 0)
+        agree[k] = [float(d_in_h), float(h_in_d)]
+        checks(d_in_h >= DEV_IN_HOST_MIN and h_in_d >= HOST_IN_DEV_MIN,
+               f"{label}: frame {k}: device vs host painter coverage "
+               f"{d_in_h}, {h_in_d}")
+    res = {"frames": n, "height": height, "width": width,
+           "render_s": render_s, "render_frames_per_s": n / render_s,
+           "k2_launches": counts[0], "k3_launches": counts[1],
+           "k3_setup_launches": counts[2], "output_gib": out_gib,
+           "peak_gib": peak, "work_gib": work_gib,
+           "min_covered_px": int(per_frame.min()),
+           "mean_covered_px": float(per_frame.float().mean()),
+           "dev_in_host_host_in_dev": agree,
+           "last_chunk_from_frame": s0, "k2_last_chunk": k2_row,
+           "k3_last_chunk": k3_row}
+    del gray, covered, per_frame
+    torch.cuda.empty_cache()
+    return res
+
+
+def chunk_gap(w, st1, st2c, st2b, dev, checks):
+    """Where the 10k video's chunked stage 2 (``st2c``, the CLI's route)
+    and its one batch (``st2b``, the fused fit) differ, and why.
+
+    f32, the two runs: the per-window largest parameter difference, the
+    window, frame and parameter (joint, axis) where it is largest, the
+    per-window relative gap of the final costs (over the windows that
+    converged in both, and the rest, which stopped at the trip cap), and
+    how far the two solutions put the keypoints apart (projected joints,
+    px). The CLI's host interpolation against the fused run's on the same
+    anchors. f64, from the CLI's stage-2 inputs: the worst window's chunk
+    of LONG_CHUNK windows against the same windows of one batch of all,
+    the exact solve over all trips and the CG after PCG_GAP_TRIPS trips;
+    in the CG's first trip, the systems the chunk and the batch hand it,
+    and the CG on one system in the batch and alone after CG_GAP_STEPS
+    steps, beside that system's exact solution. -> the numbers."""
+    import copy
+
+    import torch
+    from smpltpu_torch.constants import init_root_rotation
+    from smpltpu_torch.energy import (
+        make_skeleton_spec,
+        project,
+        skeleton_joints_cam,
+    )
+    from smpltpu_torch.ops import cg as cg_ops
+    from smpltpu_torch.solve import build_multi_fitter
+    from smpltpu_torch.solve.multi_frame import arrow_tridiag
+    from smpltpu_torch.solve.two_stage import (
+        interp_tables,
+        interpolate_anchors,
+    )
+
+    valid = w["args"][6] > 0                                  # (W, WSIZE)
+    diff = (st2b.params - st2c.params).abs() * valid[..., None]
+    per_window = diff.amax(dim=(1, 2))
+    wi, fi, pi = (int(i) for i in np.unravel_index(int(diff.argmax()),
+                                                   tuple(diff.shape)))
+    cost_gap = (st2b.cost - st2c.cost).abs() / st2c.cost
+    both = st2c.converged & st2b.converged
+
+    def keypoints(st):
+        uv = project(skeleton_joints_cam(st.params, st.shape[:, None],
+                                         w["spec"]), w["cam"])
+        return uv[:, :, w["use_smpl"]]                       # (W, F, K, 2)
+    motion = ((keypoints(st2c) - keypoints(st2b)).norm(dim=-1)
+              * valid[..., None]).amax(dim=(1, 2))          # (W,) px
+    # the two routes' stage-2 initial poses
+    seg, hi, t = interp_tables(w["anchor_idx"], w["n_frames"])
+    fused = interpolate_anchors(
+        st1.params, torch.as_tensor(seg, device=dev),
+        torch.as_tensor(hi, device=dev),
+        torch.as_tensor(t, dtype=st1.params.dtype, device=dev)[:, None])
+    (bp, *_), _, _ = cli_windows(w, st1)
+    starts = np.asarray(w["starts"])
+    frames = torch.as_tensor(np.minimum(starts[:, None] + np.arange(WSIZE),
+                                        w["n_frames"] - 1), device=dev)
+    init_gap = float(((bp - fused[frames]).abs() * valid[..., None]).max())
+    converged_gap = float(cost_gap[both].max()) if bool(both.any()) else 0.0
+    res = {"worst_window": wi, "worst_frame": fi, "worst_param": pi,
+           "worst_joint_axis": [1 + (pi - 7) // 3, (pi - 7) % 3]
+           if pi >= 7 else None,
+           "max_param_diff": float(diff.max()),
+           "median_window_max_param_diff": float(per_window.median()),
+           "windows_differing": int((per_window > 0).sum()),
+           "windows_over_1e_3": int((per_window > 1e-3).sum()),
+           "params_bitwise_equal": bool(float(diff.max()) == 0.0),
+           "converged_in_both": int(both.sum()),
+           "max_cost_gap_rel_converged": converged_gap,
+           "max_cost_gap_rel_capped": float(cost_gap[~both].max())
+           if bool((~both).any()) else 0.0,
+           "median_cost_gap_rel": float(cost_gap.median()),
+           "windows_cost_gap_over_1e_3": int((cost_gap > 1e-3).sum()),
+           "worst_window_cost_gap_rel": float(cost_gap[wi]),
+           "worst_window_converged": [bool(st2c.converged[wi]),
+                                      bool(st2b.converged[wi])],
+           "max_keypoint_motion_px": float(motion.max()),
+           "median_keypoint_motion_px": float(motion.median()),
+           "worst_window_keypoint_motion_px": float(motion[wi]),
+           "stage2_init_max_diff": init_gap}
+    checks(converged_gap <= CONVERGED_COST_GAP
+           and res["median_cost_gap_rel"] <= MEDIAN_COST_GAP,
+           f"long_10k_batch: per-window cost gap, chunked against one "
+           f"batch: {converged_gap} over the windows converged in both "
+           f"(> {CONVERGED_COST_GAP}?), median {res['median_cost_gap_rel']} "
+           f"(> {MEDIAN_COST_GAP}?)")
+
+    # float64 on the card, chunk against one batch on the same inputs
+    f64 = torch.float64
+    spec64 = make_skeleton_spec(copy.deepcopy(w["model"]).to(f64),
+                                init_root_rotation(), with_shape=True)
+    cam64 = type(w["cam"])(*(c.to(f64) for c in w["cam"]))
+    args64, _, _ = cli_windows(w, st1, dtype=f64)
+    c0 = wi // LONG_CHUNK * LONG_CHUNK
+    part = slice(c0, min(c0 + LONG_CHUNK, len(starts)))
+    m = valid[part]
+    plain_cg = cg_ops.arrow_pcg_torch
+    systems = []
+
+    def capture(*a, **k):
+        systems.append(a)
+        return plain_cg(*a, **k)
+    for linear, trips in (("tridiag", (S2_ITERS,)), ("pcg", PCG_GAP_TRIPS)):
+        for k in trips:
+            cfg2 = fit_configs(linear, cg_iters=LONG_CG_ITERS)[1]
+            fit2 = build_multi_fitter(spec64, cam64,
+                                      cfg2._replace(max_iters=k), 10,
+                                      device=dev, dtype=f64)
+            first_trip = linear == "pcg" and k == 1
+            if first_trip:
+                cg_ops.arrow_pcg_torch = capture
+            try:
+                t0 = time.perf_counter()
+                whole = fit2(*args64)
+                torch.cuda.synchronize()
+                batch_s = time.perf_counter() - t0
+                chunk = fit2(*(a[part] for a in args64))
+            finally:
+                cg_ops.arrow_pcg_torch = plain_cg
+            d_param = float(((chunk.params - whole.params[part]).abs()
+                             * m[..., None]).max())
+            d_cost = float(((chunk.cost - whole.cost[part]).abs()
+                            / whole.cost[part]).max())
+            res[f"f64_{linear}_{k}_trips"] = {
+                "windows": [part.start, part.stop],
+                "chunk_vs_batch_param": d_param,
+                "chunk_vs_batch_cost_rel": d_cost, "batch_s": batch_s,
+                "worst_window_f32_chunked_vs_f64": float(
+                    (st2c.params[wi] - chunk.params[wi - c0].float())
+                    .abs().mul(valid[wi, :, None]).max())}
+            if linear == "tridiag":
+                checks(d_param <= EXACT_GAP_PARAM and d_cost <= EXACT_GAP_COST,
+                       f"long_10k_batch: f64 tridiag, {k} trips, chunk vs "
+                       f"one batch: params {d_param} > {EXACT_GAP_PARAM} or "
+                       f"cost {d_cost} > {EXACT_GAP_COST}")
+            del whole, chunk
+
+    # the first trip's CG: the batch's and the chunk's systems, then the
+    # CG on the chunk's windows of the batch's system, in the batch and
+    # alone, by steps; the exact solution of that system beside it
+    sys_b, sys_c = systems[0], systems[1]
+    alone = [x if x.dim() == 1 else x[part] for x in sys_b]      # tmask: 1-D
+    system_gap = max(float((x - y).abs().max() / x.abs().max())
+                     for x, y in zip(alone, sys_c))
+    exact = arrow_tridiag(*alone, linear="tridiag")[0]
+    by_steps = {}
+    for n in CG_GAP_STEPS:
+        x_alone = plain_cg(*alone, iters=n)[0]
+        scale = float(x_alone.abs().max())
+        by_steps[n] = {
+            "alone_vs_in_batch": float(
+                (plain_cg(*sys_b, iters=n)[0][part] - x_alone).abs().max())
+            / scale,
+            "vs_exact": float((x_alone - exact).abs().max()) / scale}
+    shallow = max(v["alone_vs_in_batch"] for n, v in by_steps.items()
+                  if n <= CG_SHALLOW_STEPS)
+    res["f64_pcg_first_trip_cg"] = {"system_gap_rel": system_gap,
+                                    "by_steps_rel": by_steps}
+    checks(system_gap <= SYSTEM_GAP and shallow <= SYSTEM_GAP,
+           f"long_10k_batch: f64, the first trip's CG: the chunk's and the "
+           f"batch's systems {system_gap} apart, the CG on one system in "
+           f"the batch and alone {shallow} apart through "
+           f"{CG_SHALLOW_STEPS} steps (> {SYSTEM_GAP}?)")
+    return res
+
+
+def long_phases(dev, checks):
+    """The long-video configuration (bench.py's BENCH_FRAMES 10 000 and
+    100 000, BENCH_CHUNK=67, 64 CG steps):
+
+    ``5 long_10k_chunked``: the multi CLI's sequential route
+    (``build_cli_sequential``): stage 1 on the 1000 anchors (K1 at 1 x
+    1000), the host interpolation, stage 2 in chunks of 67 windows (K1 at
+    67 x 20 and the ragged last chunk); the first stage-1 and stage-2 K1
+    systems held against the plain version. ``5 long_10k_batch``: the same
+    video through the fused fit, stage 2 as one batch of 667 windows (K1
+    at 667 x 20), held within LONG_GAP_MAX_PX of the chunked residual, and
+    ``chunk_gap``'s account of where the two differ. ``5 long_100k_stage1``: the
+    100 000-frame video's stage 1 alone (10 000 anchors in one window, K1
+    at 1 x 10 000), LONG_XL_S1_ITERS trips: the anchors' residual, peak
+    memory, its first K1 system against plain, and LONG_PROFILE_TRIPS
+    trips under the profiler.
+    ``6 render_10k``: ``render_frames`` over the 10 000 chunked-fit frames
+    at 1280 x 720, its last chunk checked again by ``render_chunk_check``.
+    Returns the result line's rows for these runs: K1's as (name,
+    launches, ``k1_compare``'s numbers), and the render's K2 and K3
+    launches."""
+    import torch
+    from smpltpu_torch.solve import MultiFrameConfig, build_multi_fitter
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k1_rows = []
+    t0 = time.perf_counter()
+    w = bench_workload(dev, n_frames=LONG_FRAMES)
+    setup_s = time.perf_counter() - t0
+    first = {}
+    res, st1c, st2c = long_fit(w, "pcg_kernel", dev, LONG_CHUNK, checks,
+                               "long_10k_chunked", first)
+    res["setup_s"] = setup_s
+    n_a = len(w["anchor_idx"])
+    by_shape = {}
+    for (n_w, f), (a, k) in sorted(first.items()):
+        by_shape[n_w, f] = k1_compare(
+            f"long_10k_{n_w}x{f}_first_lm_iter", a, k["iters"], k["rtol"],
+            checks, reps=(5, 1), real_system=True, phase_no=5)
+    del first
+    s1 = by_shape[1, n_a]
+    for (n_w, f), c in sorted(by_shape.items()):
+        k1_rows.append((f"arrow_pcg_long_10k_chunked_{n_w}x{f}",
+                        res["k1_launches_by_shape"][f"arrow_pcg@{n_w}x{f}"], c))
+    res["k1_stage1_vs_plain"] = {
+        key: s1[key] for key in ("ok", "ms", "plain_ms", "bound_ms",
+                                 "kernel_vs_f64_p", "plain_vs_f64_p")}
+    phase("5 long_10k_chunked", ok=not any("long_10k_chunked" in f
+                                           for f in checks.failed)
+          and all(c["ok"] for c in by_shape.values()), **res)
+    chunked = res
+
+    first = {}
+    res, st1b, st2b = long_fit(w, "pcg_kernel", dev, 0, checks,
+                               "long_10k_batch", first)
+    n_win = len(w["starts"])
+    a, k = first[n_win, WSIZE]
+    c = k1_compare(f"long_10k_{n_win}x{WSIZE}_first_lm_iter", a, k["iters"],
+                   k["rtol"], checks, reps=(5, 1), real_system=True,
+                   phase_no=5)
+    k1_rows.append((f"arrow_pcg_long_10k_batch_{n_win}x{WSIZE}",
+                    res["k1_launches_by_shape"][f"arrow_pcg@{n_win}x{WSIZE}"],
+                    c))
+    del first, a
+    gap = abs(res["full_batch_residual_px"] - chunked["full_batch_residual_px"])
+    checks(gap <= LONG_GAP_MAX_PX,
+           f"long_10k_batch: residual {gap} px from the chunked fit's")
+    t0 = time.perf_counter()
+    diag = chunk_gap(w, st1c, st2c, st2b, dev, checks)
+    diag["seconds"] = time.perf_counter() - t0
+    ok = not any("long_10k_batch" in f for f in checks.failed) and c["ok"]
+    phase("5 long_10k_batch", ok=ok, **res,
+          chunked_fit_s=chunked["fit_s"],
+          chunked_over_batch=chunked["fit_s"] / res["fit_s"],
+          residual_gap_px=gap,
+          stage1_bitwise_equal=bool(torch.equal(st1b.params, st1c.params)),
+          chunk_gap=diag)
+    del st1b, st2b
+
+    # the render of every frame of the chunked fit
+    frame_params, shp = write_back(w, st2c)
+    del st1c, st2c
+    res = render_long(w, frame_params, shp, w["cam"], H_R, W_R, checks,
+                      "render_10k")
+    render_rows = (("lbs", "lbs_render_10k", res["k2_launches"],
+                    res["k2_last_chunk"]),
+                   ("raster", "raster_verts_render_10k",
+                    res["k3_setup_launches"], res["k3_last_chunk"]))
+    phase("6 render_10k", ok=not any("render_10k" in f for f in checks.failed),
+          **res)
+    del w, frame_params
+
+    # the 100 000-frame video's stage 1 alone
+    t0 = time.perf_counter()
+    w = bench_workload(dev, n_frames=LONG_FRAMES_XL)
+    setup_s = time.perf_counter() - t0
+    args1 = w["args"][:4]
+    cfg1 = MultiFrameConfig(beta_pose=5.0, beta_shape=25.0,
+                            lambda_temporal=3.0, max_iters=LONG_XL_S1_ITERS,
+                            linear="pcg_kernel", cg_iters=LONG_CG_ITERS,
+                            fused_cost=True)
+    fit1 = build_multi_fitter(w["spec"], w["cam"], cfg1, 10, device=dev,
+                              dtype=torch.float32)
+    first = {}
+    with first_k1_systems(first):
+        st1, wall_s, launches, peak = counted_run(lambda: fit1(*args1))
+    trips = int(st1.iters_run)
+    n_a = len(w["anchor_idx"])
+    k1 = {k: v for k, v in launches.items() if k.startswith("arrow_pcg@")}
+    checks(k1 == {f"arrow_pcg@1x{n_a}": trips},
+           f"long_100k_stage1: K1 launches {k1} != {trips} trips")
+    residual = full_batch_residual(w, st1.params, st1.shape,
+                                   frames=w["anchor_idx"])
+    checks(np.isfinite(residual) and residual <= RESIDUAL_MAX_PX,
+           f"long_100k_stage1: anchors' residual {residual} px")
+    (a, k), = first.values()
+    c = k1_compare(f"long_100k_1x{n_a}_first_lm_iter", a, k["iters"],
+                   k["rtol"], checks, reps=(3, 1), real_system=True,
+                   phase_no=5)
+    k1_rows.append((f"arrow_pcg_long_100k_stage1_1x{n_a}", trips, c))
+    del first, a
+    # a short window of the same solve under the profiler
+    fit_short = build_multi_fitter(
+        w["spec"], w["cam"], cfg1._replace(max_iters=LONG_PROFILE_TRIPS), 10,
+        device=dev, dtype=torch.float32)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        short = fit_short(*args1)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    dev_ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_ev) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in dev_ev
+                if "arrow_pcg_kernel" in e.key) / 1e3
+    short_trips = int(short.iters_run)
+    host_mb = sum(v.nbytes for v in w.values() if isinstance(v, np.ndarray))
+    ok = bool(np.isfinite(residual) and residual <= RESIDUAL_MAX_PX
+              and c["ok"])
+    phase("5 long_100k_stage1", ok=ok, frames=w["n_frames"], anchors=n_a,
+          setup_s=setup_s, workload_host_mb=host_mb / 1e6,
+          workload_device_mb=nbytes(*w["args"]) / 1e6,
+          fit_s=wall_s, trips=trips, converged=bool(st1.converged),
+          cost_at_trip={str(k): float(st1.cost_history[k - 1])
+                        for k in (1, 10, 25, 50, 75, 100, 150)
+                        if k <= cfg1.max_iters},
+          ms_per_trip=wall_s * 1e3 / max(trips, 1),
+          k1_launches=launches.get("arrow_pcg", 0),
+          anchors_residual_px=residual, peak_gib=peak,
+          k1_first_lm_iter={key: c[key] for key in (
+              "ok", "plan", "ms", "plain_ms", "bound_ms",
+              "kernel_vs_f64_p", "plain_vs_f64_p")},
+          profiled_trips=short_trips, profiled_wall_ms=prof_ms,
+          device_busy_ms=busy_ms, k1_device_ms=k1_ms,
+          k1_share_of_busy=k1_ms / max(busy_ms, 1e-9),
+          idle_share=1.0 - busy_ms / prof_ms,
+          device_launches=sum(e.count for e in dev_ev),
+          device_busy_ms_per_trip=busy_ms / max(short_trips, 1))
+    del w, st1, short, fit1, fit_short
+    torch.cuda.empty_cache()
+    return k1_rows, render_rows
+
+
+def long_run(dev, checks):
+    """``python3 chip_smoke.py --long``: the whole 100 000-frame video
+    (``5 long_100k``: the CLI's sequential route, stage 1 on 10 000
+    anchors, the host interpolation, 6667 windows in chunks of 67;
+    ``5 long_100k_batch``: the fused fit with the 6667 windows as one
+    batch, within LONG_GAP_MAX_PX of the chunked residual), its render at
+    bench.py's default 270 x 480 (``6 render_100k``),
+    and the 10 000-frame chunked fit with ``linear="pcg_block"`` beside
+    ``pcg_kernel`` (``5 long_10k_pcg_block``: the pcg_block half of
+    ROADMAP's M13 row)."""
+    import torch
+    from smpltpu_torch.utils import default_intrinsics
+
+    t0 = time.perf_counter()
+    w = bench_workload(dev, n_frames=LONG_FRAMES_XL)
+    setup_s = time.perf_counter() - t0
+    res, _, st2 = long_fit(w, "pcg_kernel", dev, LONG_CHUNK, checks,
+                           "long_100k")
+    phase("5 long_100k", ok=not any("long_100k" in f for f in checks.failed),
+          setup_s=setup_s, **res)
+    chunked = res
+    frame_params, shp = write_back(w, st2)
+    del st2
+    # the same video with stage 2 as one batch of 6667 windows
+    res, _, _ = long_fit(w, "pcg_kernel", dev, 0, checks, "long_100k_batch")
+    gap = abs(res["full_batch_residual_px"]
+              - chunked["full_batch_residual_px"])
+    checks(gap <= LONG_GAP_MAX_PX,
+           f"long_100k_batch: residual {gap} px from the chunked fit's")
+    phase("5 long_100k_batch", ok=not any("long_100k_batch" in f
+                                          for f in checks.failed),
+          **res, chunked_fit_s=chunked["fit_s"],
+          chunked_over_batch=chunked["fit_s"] / res["fit_s"],
+          residual_gap_px=gap)
+    torch.cuda.empty_cache()
+    cam = default_intrinsics(W_LONG, H_LONG, device=dev, dtype=torch.float32)
+    res = render_long(w, frame_params, shp, cam, H_LONG, W_LONG, checks,
+                      "render_100k")
+    phase("6 render_100k", ok=not any("render_100k" in f
+                                      for f in checks.failed), **res)
+    del w, frame_params
+    torch.cuda.empty_cache()
+
+    w = bench_workload(dev, n_frames=LONG_FRAMES)
+    rows = {}
+    for linear in ("pcg_block", "pcg_kernel"):
+        rows[linear], _, _ = long_fit(w, linear, dev, LONG_CHUNK, checks,
+                                      f"long_10k_{linear}")
+    gap = (rows["pcg_block"]["full_batch_residual_px"]
+           - rows["pcg_kernel"]["full_batch_residual_px"])
+    phase("5 long_10k_pcg_block", ok=not any("long_10k_pcg" in f
+                                             for f in checks.failed),
+          **rows["pcg_block"], pcg_kernel=rows["pcg_kernel"],
+          residual_minus_pcg_kernel_px=gap)
+
+
 def main(argv):
     import torch
 
@@ -2399,6 +3213,9 @@ def main(argv):
     if argv == ["--k1-layouts"]:
         k1_layouts(rng, dev, checks, every=True)
         return 1 if checks.failed else 0
+    if argv == ["--long"]:
+        long_run(dev, checks)
+        return finish(checks, kind)
     if argv:
         raise SystemExit(f"chip_smoke: unknown arguments {argv}")
     for label, n_w, f, p, n_s, rtol, cluster in K1_SWEEP:
@@ -2408,6 +3225,7 @@ def main(argv):
                    cluster=cluster)
         del sys_args
     k1_layouts(rng, dev, checks)
+    k1_long_phase(rng, dev, checks)
 
     # 4. K2 vs plain: the full-width model at 100 (timed), 1 and 37 frames,
     # the 300-vertex model, and 7 shapes (the run-time-width instantiation)
@@ -2423,12 +3241,6 @@ def main(argv):
 
     # warm-up run; it also captures each stage's first K1 system
     first = {}
-    real_pcg = cg.arrow_pcg
-
-    def capture(*a, **k):
-        first.setdefault(tuple(a[5].shape[:2]),
-                         ([t.clone() for t in a], k))
-        return real_pcg(*a, **k)
     real_asm = multi_frame.corrected_frame_assembly
     first_asm = {}
 
@@ -2436,12 +3248,11 @@ def main(argv):
         first_asm.setdefault(tuple(a[0].shape[:2]),
                              [t.clone() if torch.is_tensor(t) else t for t in a])
         return real_asm(*a, **k)
-    cg.arrow_pcg = capture
     multi_frame.corrected_frame_assembly = capture_asm
     try:
-        run(*w["args"])
+        with first_k1_systems(first):
+            run(*w["args"])
     finally:
-        cg.arrow_pcg = real_pcg
         multi_frame.corrected_frame_assembly = real_asm
     torch.cuda.synchronize()
     phase("5 warmup", seconds=run.timings)
@@ -2606,14 +3417,11 @@ def main(argv):
     mesh_phases(w, st1, st1t, st2, single_ref, dev, checks)
     # 12. the host runtime: the native parser and fill
     host_native_phase(w, verts, checks)
+    # the long-video configuration: 10 000 and 100 000 frames
+    long_k1, long_render = long_phases(dev, checks)
     fit_profile(w, dev, checks)
 
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "smpltpu"))
-    checks(not foreign, f"JAX or the JAX package was imported: {foreign}")
-    if checks.failed:
-        print(f"chip_smoke: {len(checks.failed)} check(s) failed: "
-              f"{checks.failed}", flush=True)
+    if not_ok(checks):
         return 1
     # K1 at each stage's shape, on that stage's first real system; its
     # launches are the main path's count at that shape
@@ -2626,7 +3434,17 @@ def main(argv):
          "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
          "library_ms": None}
         for stage, c in (("stage1", k1_main["stage1_first_lm_iter"]),
-                         ("stage2", k1_main["stage2_first_lm_iter"]))]
+                         ("stage2", k1_main["stage2_first_lm_iter"]))] + [
+        # the long-video runs: K1 at their shapes, on each shape's first
+        # real system; their launches are that run's count at the shape
+        {"name": name, "route": "cuda",
+         "source": "smpltpu_torch/csrc/arrow_pcg.cu",
+         "replaces": "smpltpu/ops/cg.py:146", "launches": launches,
+         "max_abs_err": max(c["max_abs_err_p"], c["max_abs_err_w"]),
+         "ms": c["ms"], "plain_ms": c["plain_ms"],
+         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+         "library_ms": None}
+        for name, launches, c in long_k1]
     print(json.dumps({"kernels": k1_lines + [
         {"name": "lbs", "route": "cuda", "source": "smpltpu_torch/csrc/lbs.cu",
          "replaces": "smpltpu/ops/lbs.py:88", "launches": k2_launches,
@@ -2644,7 +3462,39 @@ def main(argv):
          "bound_by": k3[name]["bound_by"], "library_ms": None}
         for name, launches in (("raster", k3_launches),
                                ("raster_verts", k3_setup_launches))
+    ] + [
+        # render_10k: K2 and K3 on the render's last 100-frame chunk, their
+        # launches the render's
+        {"name": name, "route": "cuda",
+         "source": f"smpltpu_torch/csrc/{src}.cu",
+         "replaces": {"lbs": "smpltpu/ops/lbs.py:88",
+                      "raster": "smpltpu/render/pallas_raster.py:425"}[src],
+         "launches": launches, "max_abs_err": row["max_abs_err"],
+         "ms": row["ms"], "plain_ms": row["plain_ms"],
+         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+         "library_ms": None}
+        for src, name, launches, row in long_render
     ]}), flush=True)
+    return finish(checks, kind)
+
+
+def not_ok(checks):
+    """True, after saying so, if a check failed or JAX or the JAX package
+    was imported."""
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "smpltpu"))
+    checks(not foreign, f"JAX or the JAX package was imported: {foreign}")
+    if checks.failed:
+        print(f"chip_smoke: {len(checks.failed)} check(s) failed: "
+              f"{checks.failed}", flush=True)
+    return bool(checks.failed)
+
+
+def finish(checks, kind):
+    """The result line, and exit code 0, if every check passed; else 1."""
+    import torch
+    if not_ok(checks):
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -223,6 +223,37 @@ def _pad_window(arr, start, end, wsize):
     return out
 
 
+def interpolate_from_anchors(poses, anchor_idx, anchor_params):
+    """``--init-from-anchors``: seed every frame of ``poses`` (N, P), in
+    place, from the anchor optima (A, P), linearly between consecutive
+    anchors and holding the last anchor to the video's end."""
+    n_frames, n_a = len(poses), len(anchor_idx)
+    for k, fid in enumerate(anchor_idx):
+        a = fid
+        b = anchor_idx[k + 1] if k + 1 < n_a else n_frames
+        pb = anchor_params[k + 1] if k + 1 < n_a else anchor_params[k]
+        poses[a] = anchor_params[k]
+        for i in range(a + 1, min(b, n_frames)):
+            w = (i - a) / max(b - a, 1)
+            poses[i] = (1.0 - w) * anchor_params[k] + w * pb
+
+
+def window_inputs(s, wsize, poses, r0, kp, default_pose):
+    """(end, params, keypoints, R0, frame_valid) of the window at frame
+    s, numpy, padded to wsize."""
+    n_frames = len(poses)
+    e = min(s + wsize, n_frames)
+    valid = np.zeros(wsize, np.float32)
+    valid[:e - s] = 1.0
+    # pad with the DEFAULT pose (scale 1, z 3), not zeros: a zero pose
+    # puts padded joints at z=0 whose residuals would blow up the cost
+    wp = np.tile(default_pose, (wsize, 1))
+    wp[:e - s] = poses[s:e]
+    wr = np.tile(np.eye(3, dtype=np.float32), (wsize, 1, 1))
+    wr[:e - s] = r0[s:e]
+    return e, wp, _pad_window(kp, s, e, wsize), wr, valid
+
+
 def main(argv=None, *, device="cuda", mesh=None) -> int:
     """The CLI on ``device``. ``mesh``: run as this rank of a mesh (the
     launcher's workers pass theirs; tests may run ranks as threads); else
@@ -465,14 +496,7 @@ def _run(opts, dev, mesh_n, mesh) -> int:
                 # poses, linearly interpolated between consecutive anchors
                 # (R0 untouched, so the interpolated rootAA stays
                 # consistent)
-                for k, fid in enumerate(anchor_idx):
-                    a = fid
-                    b = anchor_idx[k + 1] if k + 1 < n_a else n_frames
-                    pb = anchor_params[k + 1] if k + 1 < n_a else anchor_params[k]
-                    poses[a] = anchor_params[k]
-                    for i in range(a + 1, min(b, n_frames)):
-                        w = (i - a) / max(b - a, 1)
-                        poses[i] = (1.0 - w) * anchor_params[k] + w * pb
+                interpolate_from_anchors(poses, anchor_idx, anchor_params)
             else:
                 # write-back effects, and only these: anchor poses are
                 # deliberately not copied into `poses` (reference quirk)
@@ -496,20 +520,6 @@ def _run(opts, dev, mesh_n, mesh) -> int:
                               device=dev, dtype=dtype)
     wsize = opts["wsize"]
     eye3 = np.eye(3, dtype=np.float32)
-
-    def window_inputs(s):
-        """(end, params, keypoints, R0, frame_valid) of the window at s,
-        numpy, padded to wsize."""
-        e = min(s + wsize, n_frames)
-        valid = np.zeros(wsize, np.float32)
-        valid[:e - s] = 1.0
-        # pad with the DEFAULT pose (scale 1, z 3), not zeros: a zero pose
-        # puts padded joints at z=0 whose residuals would blow up the cost
-        wp = np.tile(default_pose, (wsize, 1))
-        wp[:e - s] = poses[s:e]
-        wr = np.tile(eye3, (wsize, 1, 1))
-        wr[:e - s] = r0[s:e]
-        return e, wp, _pad_window(kp, s, e, wsize), wr, valid
 
     def save_ckpt(next_start):
         save_checkpoint(ckpt_base,
@@ -552,7 +562,8 @@ def _run(opts, dev, mesh_n, mesh) -> int:
     if mesh is not None and mesh.rank and not opts["batched_windows"]:
         return 0    # the sequential windows are rank 0's
     if opts["batched_windows"]:
-        packs = [window_inputs(s) for s in starts]
+        packs = [window_inputs(s, wsize, poses, r0, kp, default_pose)
+                 for s in starts]
         if opts["window_chunk"] == 0 and mesh is None and len(packs) > 128:
             print(f"[INFO] {len(packs)} windows in one batch; on long "
                   "videos `--window-chunk 67` (with --cg-rtol 0) bounds "
@@ -632,7 +643,8 @@ def _run(opts, dev, mesh_n, mesh) -> int:
         first = True
         with profile_trace(profile_dir):
             for s in starts:
-                e, wp, wk, wr, wv = window_inputs(s)
+                e, wp, wk, wr, wv = window_inputs(s, wsize, poses, r0, kp,
+                                                  default_pose)
                 args2 = (t(wp), t(shape_w), t(wk), t(wr), t(wv))
                 if first:  # warm-up, so the first window's time is real
                     warm_up(spec_s2, cfg2, args2)

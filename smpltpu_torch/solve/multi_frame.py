@@ -541,11 +541,23 @@ def build_chunked_window_fit(fitter, chunk_size: int):
 
     The batched fitter runs until its slowest window has converged, so a
     wide batch pays that window's trips for all of its windows; each chunk
-    here stops on its own. Per-window results equal those of one batch: a
-    converged window keeps its state, so its trajectory does not depend on
-    how many trips its batch runs. Unlike the reference under ``jax.vmap``,
-    this also holds with ``cfg.cg_rtol > 0``: the port's PCG (plain and
-    K1) stops each window's CG on that window's own residual."""
+    here stops on its own. A converged window keeps its state, so its
+    trajectory does not depend on how many trips its batch runs, and in
+    exact arithmetic per-window results equal those of one batch. Unlike
+    the reference under ``jax.vmap``, this also holds with
+    ``cfg.cg_rtol > 0``: the port's PCG (plain and K1) stops each window's
+    CG on that window's own residual.
+
+    In floating point the batch width moves the summation order, by
+    rounding. The exact solves keep it there (``linear="tridiag"``, f64 on
+    the card: 3e-11 in params after 60 trips at bench.py's 10 000
+    frames). A truncated CG does not: from the same system, in a chunk
+    and in the whole batch, its iterates part by 1e-16 after one step and
+    by ~4e-3 of their scale after 64 (f64 and f32 alike), and the LM trips
+    carry that on, so chunks and one batch end up to ~2 apart in weakly
+    seen joint angles and up to 4 % apart in the final cost of windows
+    stopped at the trip cap, while the video's residual moves by 4e-6 px
+    (``chip_smoke.py``'s ``5 long_10k_batch``)."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 

@@ -37,6 +37,13 @@ def interp_tables(anchor_idx, n_frames: int):
     return seg, hi, t.astype(np.float64)
 
 
+def interpolate_anchors(ap, seg, hi, t):
+    """The frames' poses (N, P) from the anchor optima ``ap`` (A, P) and
+    ``interp_tables``' tables as tensors on ap's device (``t`` as (N, 1)
+    in ap's dtype): the fused run's interpolation."""
+    return (1.0 - t) * ap[seg] + t * ap[hi]
+
+
 def build_fused_two_stage(spec, cam, cfg1, cfg2, n_shapes: int, anchor_idx,
                           win_starts, wsize: int, n_frames: int, *, device,
                           dtype, spec2=None):
@@ -70,8 +77,7 @@ def build_fused_two_stage(spec, cam, cfg1, cfg2, n_shapes: int, anchor_idx,
     def run(p0a, shape0, kpa, r0a, kpw, r0w, vw):
         t0 = time.perf_counter()
         st1 = fit1(p0a, shape0, kpa, r0a)
-        ap = st1.params
-        poses = (1.0 - t_t) * ap[seg_t] + t_t * ap[hi_t]          # (N, P)
+        poses = interpolate_anchors(st1.params, seg_t, hi_t, t_t)  # (N, P)
         p0w = torch.where(valid, poses[win_g], init_p)            # (W, wsize, P)
         sync()
         t1 = time.perf_counter()

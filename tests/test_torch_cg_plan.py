@@ -19,7 +19,7 @@ P = 76
 H100 = {"smem_per_block": 232448, "max_cluster": 16}
 CLUSTER8 = {"smem_per_block": 232448, "max_cluster": 8}
 SHAPES = [(1, 100), (67, 20), (1, 1), (1, 7), (3, 7), (1, 160), (3, 160),
-          (1, 400)]
+          (1, 400), (1, 1000), (1, 10000), (667, 20)]
 
 
 @pytest.mark.parametrize("limits", [H100, CLUSTER8], ids=["h100", "cluster8"])
@@ -63,6 +63,27 @@ def test_k1_plan_picks_the_measured_layouts():
     assert (s2.cluster, s2.frames_per_cta, s2.resident_frames) == (3, 7, 7)
     s8 = cg.k1_plan(1, 100, P, 10, **CLUSTER8)
     assert (s8.cluster, s8.frames_per_cta, s8.resident_frames) == (8, 13, 7)
+
+
+@pytest.mark.parametrize("n_win,n_frames,want", [
+    # the 10 000-frame video's stage 1: 63 frames a CTA, 4 of them
+    # resident, the other 59 streamed from L2 on every CG step
+    (1, 1000, (16, 63, 4, True, 0)),
+    # the 100 000-frame video's stage 1: the vectors of 625 frames no
+    # longer fit beside the header; they go to global scratch
+    # (16 CTAs x 6 vectors x 47 500 floats), and 8 frames stay resident
+    (1, 10000, (16, 625, 8, False, 16 * 6 * 47500 * 4)),
+    # the 10 000-frame video's stage 2 as one batch: the 67-window plan
+    (667, 20, (3, 7, 7, True, 0)),
+])
+def test_k1_plan_long_video_shapes(n_win, n_frames, want):
+    """K1's plans at the long-video configuration's shapes with an H100's
+    limits: (cluster, frames per CTA, resident frames, vectors in shared
+    memory, scratch bytes)."""
+    plan = cg.k1_plan(n_win, n_frames, P, 10, **H100)
+    assert (plan.cluster, plan.frames_per_cta, plan.resident_frames,
+            plan.vec_in_smem, 4 * plan.scratch_floats) == want
+    assert plan.vec_len == -(-plan.frames_per_cta * P // 4) * 4
 
 
 def _one_pass_on_chip(plan, p):
