@@ -148,7 +148,18 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    video's stage 1 alone: 10 000 anchors in one window, K1 at 1 x 10 000,
    75 of bench.py's 150 trips; the anchors' residual, peak memory, its
    first K1 system against plain, three trips under the profiler).
-13. one more fit under torch.profiler, at a fifth of the depth (30 + 12
+13. bench.py's twin as a user runs it, phase ``13 bench``
+   (``bench_phase``): ``python -m smpltpu_torch.bench`` in a process of its
+   own, twice (``BENCH_RUNS``): (a) ``BENCH_LINEAR=pcg_kernel
+   BENCH_RENDER=1`` at 1000 frames (K1, K2, K3); (b) 100 frames with the
+   stream modes (10 frames) and BENCH_SINGLE with the GMM quality gate,
+   and no fused fit (BENCH_FUSE_STAGES=0: (a) holds it). Each: exit code
+   0, one stdout line with bench.py's four keys, the stderr records its
+   modes print with bench.py's keys, both residuals under 2.0 px, K1's
+   launches equal to the LM trips the run printed (by system shape, its
+   untimed first runs included), K2 and K3 once per 100-frame chunk of the
+   render and its first chunk.
+14. one more fit under torch.profiler, at a fifth of the depth (30 + 12
    LM iterations: the profiler takes half a minute to digest a full
    fit's records), phase ``5 fit_profile``: device busy ms, K1's ms and
    launches, the idle share; last, so that the profiler's cost touches
@@ -172,6 +183,12 @@ bench.py's default 270 x 480 (``6 render_100k``) and the
 ``pcg_kernel`` (``5 long_10k_pcg_block``), and ends with the result line
 (no kernels' line); a few minutes, too slow for the default run.
 
+    python3 chip_smoke.py --bench-default
+
+runs phases 1 and 2, then bench.py's twin once with no BENCH_* variable
+set (bench.py's defaults: the plain PCG loop, no K1), checked as phase 13
+checks its runs, and ends with the result line.
+
     python3 chip_smoke.py --k2
 
 runs phases 1, 2 and the 100-frame case of phase 4 only: K2's time by
@@ -193,7 +210,6 @@ no CUDA device, or a directory without the port.
 """
 
 import contextlib
-import functools
 import json
 import os
 import re
@@ -247,7 +263,7 @@ GOLDEN_MESH1_ARGV = GOLDEN_ARGV[:9] + ["400"] + GOLDEN_ARGV[10:]
 # 128 frames, the single CLI's defaults max_iters=100, beta_pose=20,
 # beta_shape=30; the GMM run at beta_pose=5 with a start per component
 SINGLE_FRAMES, SINGLE_ITERS, SINGLE_CHUNK = 128, 100, 128
-SINGLE_BETA_POSE, SINGLE_BETA_SHAPE, SINGLE_GMM_BETA = 20.0, 30.0, 5.0
+SINGLE_BETA_POSE, SINGLE_GMM_BETA = 20.0, 5.0
 SINGLE_F64_GAP_MAX_PX = 0.1    # the f32 fit's mean px against f64's
 SINGLE_FLIP_PX = 0.5           # a frame further apart is printed as a flip
 CHOL_EIGH_RTOL = 1e-4          # tests/test_single_frame_solver.py:202
@@ -374,6 +390,41 @@ K1_LONG = (("1x1000", 1, 1000), ("1x10000", 1, 10000), ("667x20", 667, 20))
 # --long's render: bench.py's default scale, 0.375 of the 720 x 1280
 # camera (bench.py:378-380), H x W
 H_LONG, W_LONG = 480, 270
+
+
+# phase 13: bench.py's twin, ``python -m smpltpu_torch.bench``, run as a
+# user runs it, in a process of its own: (a) K1, the render (K2, K3) at
+# 1000 frames; (b) the stream and single-frame modes with the GMM gate,
+# without the fused fit that (a) already holds (BENCH_FUSE_STAGES=0).
+# Cuts of (b), in the order the phase's 60 s asked for them: its stream
+# from 50 frames to 10 (the eager per-frame step takes ~0.23 s a frame;
+# the phase took 85 s with 50), then its video from 200 frames to 100
+# (the phase took 78 s at 200 without the fused fit)
+BENCH_RUNS = (
+    ("bench_render", {"BENCH_LINEAR": "pcg_kernel", "BENCH_RENDER": "1"}),
+    ("bench_modes", {"BENCH_FRAMES": "100", "BENCH_LINEAR": "pcg_kernel",
+                     "BENCH_FUSE_STAGES": "0", "BENCH_STREAM": "1",
+                     "BENCH_STREAM_SCAN": "1", "BENCH_STREAM_PUMP": "1",
+                     "BENCH_STREAM_FRAMES": "10", "BENCH_SINGLE": "1",
+                     "BENCH_SINGLE_GMM": "1"}),
+)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+# each stderr record bench.py prints in these modes, with its keys
+BENCH_RECORDS = {
+    "fused_two_stage_frames_per_sec": {"metric", "value", "unit",
+                                       "sequential_fps"},
+    "stream_pump_latency_ms": {"metric", "value", "unit", "p95_ms",
+                               "mean_ms"},
+    "single_frame_throughput_frames_per_sec": {
+        "metric", "value", "unit", "residual_px", "starts", "gmm", "tr"},
+}
+BENCH_TIMEOUT_S = 600
+# bytecode of every module that the run and the processes it starts import,
+# kept in the checkout: where the interpreter cannot write beside a
+# package's sources, each new process compiled torch from source again
+# (~1400 modules, ~5 s of phase 13's two processes each)
+PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "pycache")
 
 
 def bound(n_bytes, n_flops):
@@ -587,97 +638,16 @@ def k1_layouts(rng, dev, checks, every=False):
         del args, want
 
 
-@functools.lru_cache(maxsize=None)
-def synthetic_model(n_verts=None):
-    """The synthetic SMPL model of bench.py (seeded), made once per width:
-    its host construction takes seconds, and every workload shares it."""
-    from smpltpu_torch.models import make_synthetic_model
-    return make_synthetic_model(**({} if n_verts is None
-                                   else {"n_verts": n_verts}))
-
-
-def bench_workload(device, n_frames=N_FRAMES, n_verts=None):
-    """bench.py's synthetic video (bench.py:85-132): smooth ground-truth
-    motion, projected keypoints with 1 px noise, numpy default_rng(0),
-    full-width synthetic SMPL model, 720 x 1280 camera; anchors and the
-    sliding-window batch."""
-    import torch
-    from smpltpu_torch.constants import N_KP_SLOTS, USE_SMPL, init_root_rotation
-    from smpltpu_torch.energy import (
-        make_skeleton_spec,
-        project,
-        skeleton_joints_cam,
-    )
-    from smpltpu_torch.models import SMPLModel
-    from smpltpu_torch.utils import default_intrinsics
-
-    f32 = torch.float32
-    rng = np.random.default_rng(0)
-    model_dict = synthetic_model(n_verts)
-    model = SMPLModel.from_dict(model_dict, device=device, dtype=f32)
-    cam = default_intrinsics(720, 1280, device=device, dtype=f32)
-    spec = make_skeleton_spec(model, init_root_rotation(), with_shape=True)
-    r0c = np.asarray(init_root_rotation(), np.float32)
-
-    base = rng.normal(size=(23, 3)) * 0.15
-    drift = rng.normal(size=(23, 3)) * 0.003
-    fidx = np.arange(n_frames, dtype=np.float32)
-    ph = 1000.0 - np.abs(np.mod(fidx, 2000.0) - 1000.0)
-    gt = np.zeros((n_frames, 76), np.float32)
-    gt[:, 0] = 1.0
-    gt[:, 1] = 2e-3 * ph
-    gt[:, 2] = 1e-3 * ph
-    gt[:, 4] = 0.1 + 1e-3 * ph
-    gt[:, 5] = -0.1
-    gt[:, 6] = 3.2
-    gt[:, 7:] = (base[None] + ph[:, None, None] * drift[None]
-                 ).reshape(n_frames, 69).astype(np.float32)
-    uv = project(skeleton_joints_cam(torch.as_tensor(gt, device=device),
-                                     torch.zeros(10, device=device), spec),
-                 cam).cpu().numpy()
-    kp = np.zeros((n_frames, N_KP_SLOTS, 4), np.float32)
-    kp[:, :, 0] = USE_SMPL
-    kp[:, :, 1:3] = uv[:, USE_SMPL] + rng.normal(
-        size=(n_frames, N_KP_SLOTS, 2)).astype(np.float32)
-    kp[:, :, 3] = 1.0
-
-    stride = WSIZE - OVERLAP
-    starts = list(range(0, n_frames, stride))
-    kpw = np.zeros((len(starts), WSIZE, N_KP_SLOTS, 4), np.float32)
-    kpw[:, :, :, 0] = USE_SMPL
-    vw = np.zeros((len(starts), WSIZE), np.float32)
-    for i, s in enumerate(starts):
-        e = min(s + WSIZE, n_frames)
-        kpw[i, :e - s] = kp[s:e]
-        vw[i, :e - s] = 1.0
-    anchor_idx = np.arange(0, n_frames, SKIP)
-    from smpltpu_torch.energy.params import init_frame_params
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-    n_a = len(anchor_idx)
-    args = (init_frame_params(device=device, dtype=f32).repeat(n_a, 1),
-            torch.zeros(10, device=device), t(kp[anchor_idx]),
-            t(np.tile(r0c, (n_a, 1, 1))), t(kpw),
-            t(np.tile(r0c, (len(starts), WSIZE, 1, 1))), t(vw))
-    return {"model": model, "model_dict": model_dict, "cam": cam,
-            "spec": spec, "r0c": r0c, "kp": kp,
-            "starts": starts, "anchor_idx": anchor_idx, "args": args,
-            "n_frames": n_frames, "use_smpl": USE_SMPL}
-
-
+# bench.py's recipe lives in the port's twin of bench.py
+# (``smpltpu_torch/bench.py``); the phases call its functions
 def fit_configs(linear, depth=1, cg_iters=CG_ITERS):
-    """bench.py's two stage configs (bench.py:169-172, :216-219), fused
-    cost, ``cg_iters`` CG steps; both stages' LM iterations divided by
-    ``depth``."""
-    from smpltpu_torch.solve import MultiFrameConfig
-
-    common = dict(beta_pose=5.0, lambda_temporal=3.0, linear=linear,
-                  cg_iters=cg_iters, fused_cost=True)
-    return (MultiFrameConfig(beta_shape=25.0, max_iters=S1_ITERS // depth,
-                             **common),
-            MultiFrameConfig(beta_shape=1e5, max_iters=S2_ITERS // depth,
-                             **common))
+    """bench.py's two stage configs (``smpltpu_torch/bench.py::
+    stage_configs``), fused cost, ``cg_iters`` CG steps; both stages' LM
+    iterations divided by ``depth``."""
+    from smpltpu_torch.bench import stage_configs
+    return stage_configs(linear, cg_iters, fused=True,
+                         s1_iters=S1_ITERS // depth,
+                         s2_iters=S2_ITERS // depth)
 
 
 def build_fit(w, linear, device, depth=1, cg_iters=CG_ITERS):
@@ -761,34 +731,6 @@ def build_cli_sequential(w, linear, device, chunk, cg_iters=CG_ITERS):
 
     run.timings = {}
     return run
-
-
-def write_back(w, st2):
-    """Per-frame params: the first `stride` frames of each window, the
-    whole tail of the last one (bench.py:366-373); the shape of window 0."""
-    import torch
-    n = w["n_frames"]
-    stride = WSIZE - OVERLAP
-    fp = torch.zeros((n, st2.params.shape[-1]), device=st2.params.device)
-    for i, s in enumerate(w["starts"]):
-        e = min(s + WSIZE, n)
-        take = (e - s) if i == len(w["starts"]) - 1 else min(stride, e - s)
-        fp[s:s + take] = st2.params[i, :take]
-    return fp, st2.shape[0]
-
-
-def full_batch_residual(w, frame_params, shp, frames=None):
-    """Mean keypoint reprojection error in pixels over ALL frames and
-    slots, under the solver's skeleton model (the estimator bench.py
-    samples at every 8th window and 5th frame); ``frames``: the video's
-    frames that ``frame_params`` holds (the anchors), if not all."""
-    import torch
-    from smpltpu_torch.energy import project, skeleton_joints_cam
-    uv = project(skeleton_joints_cam(frame_params, shp, w["spec"]), w["cam"])
-    kp = torch.as_tensor(w["kp"] if frames is None else w["kp"][frames],
-                         device=uv.device)
-    d = torch.linalg.norm(uv[:, w["use_smpl"]] - kp[:, :, 1:3], dim=-1)
-    return float(d.mean())
 
 
 def k3_bounds(setup, verts, faces, height, width):
@@ -1797,22 +1739,6 @@ def api_phase(w, dev, checks):
           verts_shape=list(res.verts.shape))
 
 
-def single_problem(w, dtype, gmm=None, beta_pose=SINGLE_BETA_POSE):
-    """bench.py's single-frame problem (bench.py:670-672) on the
-    workload's model and camera, cast to ``dtype``."""
-    import copy
-    import torch
-    from smpltpu_torch.solve.single_frame import make_single_frame_problem
-    model, cam = w["model"], w["cam"]
-    if dtype != torch.float32:
-        model = copy.deepcopy(model).to(dtype)
-        cam = type(cam)(*(c.to(dtype) for c in cam))
-    return make_single_frame_problem(model, w["r0c"], cam,
-                                     beta_pose=beta_pose,
-                                     beta_shape=SINGLE_BETA_SHAPE,
-                                     gmm_dict=gmm)
-
-
 def frame_px(prob, x, kp):
     """Each frame's mean keypoint error (px) under the solver's model, the
     fitted scale included: bench.py's residual (:801-806) by frame."""
@@ -1882,6 +1808,7 @@ def single_phases(w, dev, checks):
     from smpltpu_torch.energy.params import init_frame_params
     from smpltpu_torch.io import load_pose_prior_txt
     from smpltpu_torch.solve.init import best_of_starts, make_start_set
+    from smpltpu_torch.bench import single_problem
     from smpltpu_torch.solve.lm import LMConfig, lm_program
     from smpltpu_torch.solve.single_frame import (
         _bounds_and_frozen,
@@ -1893,7 +1820,7 @@ def single_phases(w, dev, checks):
     kp = w["kp"][:n]
     kp_t = torch.as_tensor(kp, device=dev)
     x0 = init_frame_params(device=dev, dtype=f32).repeat(n, 1)
-    prob = single_problem(w, f32)
+    prob = single_problem(w, f32, beta_pose=SINGLE_BETA_POSE)
 
     def fitter(p, dtype, iters=SINGLE_ITERS, **kw):
         return build_fitter(p, iters, device=dev, dtype=dtype, **kw)
@@ -1928,7 +1855,7 @@ def single_phases(w, dev, checks):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    prob64 = single_problem(w, f64)
+    prob64 = single_problem(w, f64, beta_pose=SINGLE_BETA_POSE)
     st64, fit64_s = timed(lambda: fitter(prob64, f64)(x0.double(),
                                                       kp_t.double()))
     px64 = frame_px(prob64, st64.x, kp)
@@ -2303,6 +2230,7 @@ def mesh_phases(w, st1, st1_exact, st2, single_ref, dev, checks):
     import copy
     import torch
     from smpltpu_torch.constants import init_root_rotation
+    from smpltpu_torch.bench import full_batch_residual
     from smpltpu_torch.energy import make_skeleton_spec
     from smpltpu_torch.energy.params import init_frame_params
     from smpltpu_torch.ops import LAUNCHES
@@ -2593,6 +2521,7 @@ def long_fit(w, linear, dev, chunk, checks, label, first=None):
     full-batch residual to RESIDUAL_MAX_PX. ``first`` collects each K1
     shape's first system. Returns (the phase's numbers, stage-1 result,
     stage-2 result)."""
+    from smpltpu_torch.bench import full_batch_residual, write_back
     if chunk:
         run = build_cli_sequential(w, linear, dev, chunk,
                                    cg_iters=LONG_CG_ITERS)
@@ -2964,11 +2893,12 @@ def long_phases(dev, checks):
     import torch
     from smpltpu_torch.solve import MultiFrameConfig, build_multi_fitter
     from torch.autograd import DeviceType
+    from smpltpu_torch.bench import full_batch_residual, workload, write_back
     from torch.profiler import ProfilerActivity, profile
 
     k1_rows = []
     t0 = time.perf_counter()
-    w = bench_workload(dev, n_frames=LONG_FRAMES)
+    w = workload(dev, LONG_FRAMES)
     setup_s = time.perf_counter() - t0
     first = {}
     res, st1c, st2c = long_fit(w, "pcg_kernel", dev, LONG_CHUNK, checks,
@@ -3035,7 +2965,7 @@ def long_phases(dev, checks):
 
     # the 100 000-frame video's stage 1 alone
     t0 = time.perf_counter()
-    w = bench_workload(dev, n_frames=LONG_FRAMES_XL)
+    w = workload(dev, LONG_FRAMES_XL)
     setup_s = time.perf_counter() - t0
     args1 = w["args"][:4]
     cfg1 = MultiFrameConfig(beta_pose=5.0, beta_shape=25.0,
@@ -3116,10 +3046,11 @@ def long_run(dev, checks):
     ``pcg_kernel`` (``5 long_10k_pcg_block``: the pcg_block half of
     ROADMAP's M13 row)."""
     import torch
+    from smpltpu_torch.bench import workload, write_back
     from smpltpu_torch.utils import default_intrinsics
 
     t0 = time.perf_counter()
-    w = bench_workload(dev, n_frames=LONG_FRAMES_XL)
+    w = workload(dev, LONG_FRAMES_XL)
     setup_s = time.perf_counter() - t0
     res, _, st2 = long_fit(w, "pcg_kernel", dev, LONG_CHUNK, checks,
                            "long_100k")
@@ -3148,7 +3079,7 @@ def long_run(dev, checks):
     del w, frame_params
     torch.cuda.empty_cache()
 
-    w = bench_workload(dev, n_frames=LONG_FRAMES)
+    w = workload(dev, LONG_FRAMES)
     rows = {}
     for linear in ("pcg_block", "pcg_kernel"):
         rows[linear], _, _ = long_fit(w, linear, dev, LONG_CHUNK, checks,
@@ -3161,6 +3092,126 @@ def long_run(dev, checks):
           residual_minus_pcg_kernel_px=gap)
 
 
+def bench_env(extra):
+    """This process's environment without bench.py's variables, plus
+    ``extra``; the checkout on the path."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    env.update(extra)
+    return env, here
+
+
+def bench_run(label, extra, checks):
+    """``python -m smpltpu_torch.bench`` with ``extra`` set, in a process of
+    its own. Checks: exit code 0; one stdout line with bench.py's four keys
+    and a value above 0; each stderr record its modes print, with bench.py's
+    keys; the sampled and the full-batch residual <= RESIDUAL_MAX_PX; under
+    ``pcg_kernel`` K1's launches equal to the LM trips it printed, by
+    system shape (every run, the untimed first ones included); K2 and K3
+    once per 100-frame chunk of the render and its first chunk. Returns
+    the phase's numbers."""
+    env, here = bench_env(extra)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "smpltpu_torch.bench"],
+                              cwd=here, env=env, capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        checks(False, f"{label}: no end within {BENCH_TIMEOUT_S} s")
+        return {"wall_s": time.perf_counter() - t0}
+    res = {"env": extra, "wall_s": time.perf_counter() - t0,
+           "rc": proc.returncode}
+    err = proc.stderr
+    checks(proc.returncode == 0,
+           f"{label}: exit code {proc.returncode}: {err[-2000:]}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    ok_line = len(lines) == 1
+    if ok_line:
+        try:
+            rec = json.loads(lines[0])
+            ok_line = (set(rec) == BENCH_KEYS and rec["value"] > 0
+                       and rec["metric"] == "solver_throughput_frames_per_sec"
+                       "_1000frame_video")
+            res["stdout"] = rec
+        except ValueError:
+            ok_line = False
+    checks(ok_line, f"{label}: stdout {proc.stdout[-500:]!r}")
+
+    def grab(pattern, cast=float):
+        m = re.search(pattern, err, re.M)
+        return None if m is None else [cast(g) for g in m.groups()]
+    records = {}
+    for ln in err.splitlines():
+        if ln.startswith('{"metric"'):
+            rec = json.loads(ln)
+            records[rec["metric"]] = rec
+    want = []
+    if extra.get("BENCH_FUSE_STAGES", "1") == "1":
+        want.append("fused_two_stage_frames_per_sec")
+    if extra.get("BENCH_STREAM_PUMP") == "1":
+        want.append("stream_pump_latency_ms")
+    if extra.get("BENCH_SINGLE") == "1":
+        want.append("single_frame_throughput_frames_per_sec")
+    for name in want:
+        checks(name in records and set(records[name]) == BENCH_RECORDS[name],
+               f"{label}: stderr record {name}: {records.get(name)}")
+    res["records"] = records
+    sampled = grab(r"^bench: residual pixel error ([\d.]+)px")
+    full = grab(r"^bench: full-batch residual pixel error ([\d.]+)px")
+    for name, px in (("sampled", sampled), ("full-batch", full)):
+        checks(px is not None and px[0] <= RESIDUAL_MAX_PX,
+               f"{label}: {name} residual {px} px")
+    res["residual_px"], res["full_batch_residual_px"] = (
+        sampled and sampled[0], full and full[0])
+    launches = grab(r"^bench: kernel launches (\{.*\})$", json.loads)
+    trips = grab(r"^bench: LM trips by system shape (\{.*\})$", json.loads)
+    launches, trips = (launches or [{}])[0], (trips or [{}])[0]
+    res["launches"], res["lm_trips"] = launches, trips
+    if extra.get("BENCH_LINEAR") == "pcg_kernel":
+        by_shape = {k[len("arrow_pcg@"):]: v for k, v in launches.items()
+                    if k.startswith("arrow_pcg@")}
+        checks(launches.get("arrow_pcg", 0) > 0
+               and launches.get("arrow_pcg") == sum(trips.values())
+               and by_shape == trips,
+               f"{label}: K1 launches {launches} against the LM trips {trips}")
+    if extra.get("BENCH_RENDER") == "1":
+        n_frames = int(extra.get("BENCH_FRAMES", "1000"))
+        chunks = 1 + -(-n_frames // 100)
+        got = [launches.get(k, 0) for k in ("lbs", "raster", "raster_setup")]
+        checks(got == [chunks] * 3,
+               f"{label}: K2, K3, K3 setup launches {got} != {chunks}")
+        res["render"] = grab(r"^bench: render (\d+) frames at (\d+)x(\d+) in "
+                             r"(\d+) ms")
+    res["roofline"] = re.findall(r"^bench: (roofline\[.*)$", err, re.M)
+    res["stage_ms"] = grab(r"^bench: stage-1 (\d+) ms \+ stage-2 (\d+) ms")
+    res["fused_ms"] = grab(r"^bench: fused two-stage pipeline (\d+) ms")
+    res["peak_gib"] = grab(r"^bench: device memory peak ([\d.]+) GiB")
+    for mode in ("stream", "stream-pump"):
+        res[mode] = grab(rf"^bench: {mode} (\d+) frames: latency mean "
+                         r"([\d.]+) ms, p50 ([\d.]+) ms, p95 ([\d.]+) ms")
+    res["stream_scan"] = grab(r"^bench: stream-scan (\d+) frames in (\d+) ms")
+    res["single"] = grab(r"^bench: single-frame (\d+) frames in (\d+) ms")
+    if extra.get("BENCH_SINGLE_GMM") == "1":
+        gate = grab(r"^bench: GMM quality gate: gmm ([\d.]+)px vs no-gmm "
+                    r"([\d.]+)px .*\(gap ([+-][\d.]+)px")
+        checks(gate is not None, f"{label}: no GMM quality-gate line")
+        res["gmm_gate_px"] = gate
+    return res
+
+
+def bench_phase(checks):
+    """Phase 13: bench.py's twin run as ``BENCH_RUNS`` set it, each in a
+    process of its own (``bench_run``)."""
+    t0 = time.perf_counter()
+    for label, extra in BENCH_RUNS:
+        res = bench_run(label, extra, checks)
+        phase(f"13 {label}", ok=not any(f.startswith(label)
+                                        for f in checks.failed), **res)
+    phase("13 bench", phase_s=time.perf_counter() - t0)
+
+
 def main(argv):
     import torch
 
@@ -3171,6 +3222,7 @@ def main(argv):
     import smpltpu_torch
     from smpltpu_torch import _build
     from smpltpu_torch.ops import LAUNCHES, cg
+    from smpltpu_torch.bench import full_batch_residual, workload, write_back
     from smpltpu_torch.solve import multi_frame
     from smpltpu_torch.pipeline.common import (
         batched_frame_eval,
@@ -3208,6 +3260,10 @@ def main(argv):
         k2_phase(rng, dev, checks, K2_CASES[:1])
         return 1 if checks.failed else 0
 
+    if argv == ["--bench-default"]:
+        res = bench_run("bench_default", {}, checks)
+        phase("13 bench_default", ok=not checks.failed, **res)
+        return finish(checks, kind)
     # 3. K1 vs plain on random systems, then the layouts
     phase("3 k1_limits", **cg.device_limits(dev))
     if argv == ["--k1-layouts"]:
@@ -3233,7 +3289,7 @@ def main(argv):
 
     # 5. main path
     t0 = time.perf_counter()
-    w = bench_workload(dev)
+    w = workload(dev, N_FRAMES)
     phase("5 workload", frames=N_FRAMES, windows=len(w["starts"]),
           anchors=len(w["anchor_idx"]), verts=w["model"].num_verts,
           faces=w["model"].num_faces, setup_s=time.perf_counter() - t0)
@@ -3419,6 +3475,9 @@ def main(argv):
     host_native_phase(w, verts, checks)
     # the long-video configuration: 10 000 and 100 000 frames
     long_k1, long_render = long_phases(dev, checks)
+    # 13. bench.py's twin, as a user runs it
+    torch.cuda.empty_cache()
+    bench_phase(checks)
     fit_profile(w, dev, checks)
 
     if not_ok(checks):
@@ -3502,4 +3561,5 @@ def finish(checks, kind):
 
 
 if __name__ == "__main__":
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
     sys.exit(main(sys.argv[1:]))

@@ -121,19 +121,27 @@ def make_synthetic_model(
         k = min(8, n_verts)
         _, nn = cKDTree(v_template).query(v_template, k=k)
         nn = np.atleast_2d(nn)
+        # each vertex's unit edge to its nearest neighbour, then the cross
+        # products with every other candidate in one call: elementwise,
+        # the same arithmetic as one np.cross a pair, in a fraction of the
+        # time (a second a model of 6890 vertices)
+        near = nn[:, 1].astype(int) if k >= 2 else np.arange(n_verts)
+        e = np.empty((n_verts, 3))
+        for i in range(n_verts):
+            d = v_template[near[i]] - v_template[i]
+            e[i] = d / (np.linalg.norm(d) + 1e-12)
+        cand = nn[:, 2:k].astype(int)
+        crs = np.cross(e[:, None, :], v_template[cand] - v_template[:, None, :])
         tris = []
         for i in range(n_verts):
-            a = int(nn[i, 1]) if k >= 2 else i
+            a = int(near[i])
             # among the remaining neighbors pick the two giving the
             # FATTEST triangles (largest distance from the i-a line):
             # pure nearest-neighbor triples of random points are
             # degenerate slivers, which no rasterizer covers stably
-            e = v_template[a] - v_template[i]
-            e = e / (np.linalg.norm(e) + 1e-12)
-            best = sorted(
-                (int(nn[i, c]) for c in range(2, k)),
-                key=lambda j: -np.linalg.norm(
-                    np.cross(e, v_template[j] - v_template[i])))
+            dist = [np.linalg.norm(c) for c in crs[i]]
+            best = [int(cand[i, c]) for c in sorted(range(len(dist)),
+                                                    key=lambda c: -dist[c])]
             if best:
                 tris.append((i, a, best[0]))
             if len(best) > 1:

@@ -66,7 +66,11 @@ Differences from the JAX CLI:
   * ``--window-chunk`` with ``--cg-rtol`` gives each window the result of
     the unchunked batch (the port's PCG, plain and K1, ends each window's
     CG on its own residual), so the JAX CLI's warning that chunk width
-    changes the optima there is not printed.
+    changes the optima there is not printed;
+  * more than 128 windows in one batch: the note says that on the card one
+    batch is the faster route and ``--window-chunk`` bounds device memory
+    (the JAX CLI advises chunks of 67 against the slowest window's tail,
+    from TPU measurements).
 """
 
 from __future__ import annotations
@@ -565,9 +569,10 @@ def _run(opts, dev, mesh_n, mesh) -> int:
         packs = [window_inputs(s, wsize, poses, r0, kp, default_pose)
                  for s in starts]
         if opts["window_chunk"] == 0 and mesh is None and len(packs) > 128:
-            print(f"[INFO] {len(packs)} windows in one batch; on long "
-                  "videos `--window-chunk 67` (with --cg-rtol 0) bounds "
-                  "the slowest-window tail", file=sys.stderr)
+            print(f"[INFO] {len(packs)} windows in one batch: on the card "
+                  "one batch is faster than chunks (fewer host-bound LM "
+                  "trips); `--window-chunk N` bounds the device memory "
+                  "(PERF.md)", file=sys.stderr)
         if mesh is not None:   # all-invalid dummy windows fill the mesh
             packs = packs + [(0, np.tile(default_pose, (wsize, 1)),
                               np.zeros_like(packs[0][2]),
