@@ -31,6 +31,7 @@ from smpltpu_torch.render.zbuffer import rasterize_verts
 from smpltpu_torch.utils.camera import default_intrinsics
 from smpltpu_torch.utils.image import imread, imwrite
 from smpltpu_torch.utils.metrics import mean_pixel_error
+from smpltpu_torch.utils.obs import span
 from smpltpu_torch.utils.writeback import params_to_pose
 
 SKIN_BATCH = 100   # frames per skinning and raster launch (the reference bench's chunk)
@@ -213,7 +214,14 @@ def render_frames(model: SMPLModel, params, shape, r0, cam: Camera,
     (``render/zbuffer.py::rasterize_verts``), which writes each chunk
     straight into its frames of the result; the vertices never leave the
     device. -> (gray (F, H, W) uint8, covered (F, H, W) bool), device
-    tensors."""
+    tensors. Under a profiler the call is the span ``render.frames``, and
+    each chunk's three parts ``render.fk``, ``render.lbs`` and
+    ``render.raster``."""
+    with span("render.frames"):
+        return _render_frames(model, params, shape, r0, cam, height, width)
+
+
+def _render_frames(model, params, shape, r0, cam, height, width):
     dev, dt = model.v_template.device, model.v_template.dtype
 
     def to(a):
@@ -229,12 +237,15 @@ def render_frames(model: SMPLModel, params, shape, r0, cam: Camera,
     covered = torch.empty((n, height, width), dtype=torch.bool, device=dev)
     for s in range(0, n, SKIN_BATCH):
         e = min(s + SKIN_BATCH, n)
-        pose = params_to_pose(params[s:e], r0[s:e], model.num_joints)
-        shp = shape[s:e].contiguous()
-        g_aff, _ = joint_affines(model, shp, pose.rotations, pose.root_pos)
-        verts = lbs(shp, g_aff.contiguous(), ops).transpose(1, 2)
-        rasterize_verts(verts, faces, *intr, height, width,
-                        out=(gray[s:e], covered[s:e]))
+        with span("render.fk"):
+            pose = params_to_pose(params[s:e], r0[s:e], model.num_joints)
+            shp = shape[s:e].contiguous()
+            g_aff, _ = joint_affines(model, shp, pose.rotations, pose.root_pos)
+        with span("render.lbs"):
+            verts = lbs(shp, g_aff.contiguous(), ops).transpose(1, 2)
+        with span("render.raster"):
+            rasterize_verts(verts, faces, *intr, height, width,
+                            out=(gray[s:e], covered[s:e]))
     return gray, covered
 
 

@@ -57,6 +57,7 @@ from smpltpu_torch.solve.lm import (
     huber_correct_weight_and_slope,
 )
 from smpltpu_torch.solve.tridiag import block_tridiag_solve, block_tridiag_solve_cr
+from smpltpu_torch.utils.obs import span
 
 # forward-mode AD levels are process-wide in torch, not per thread: ranks
 # run as threads (parallel/mesh.py::run_ranks) take turns in the jvp pushes
@@ -122,6 +123,13 @@ class MultiFrameResult(NamedTuple):
 def _per_window(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(W,) -> broadcastable against ``like`` (W, ...)."""
     return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
+
+
+def _all_converged(state: MultiFrameState) -> bool:
+    """The host's read of ``converged`` once a trip: it waits for the
+    device to finish what the host has enqueued."""
+    with span("multi_frame.wait"):
+        return bool(state.converged.all())
 
 
 def _normal_pieces(jp, jw, r):
@@ -477,6 +485,10 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         return new_state, asm_new, new_state.cost
 
     def fit(params0, shape0, kp, r0, frame_valid=None):
+        with span("multi_frame.fit"):
+            return _fit(params0, shape0, kp, r0, frame_valid)
+
+    def _fit(params0, shape0, kp, r0, frame_valid):
         unbatched = params0.dim() == 2
         if unbatched:
             params0, kp, r0 = params0[None], kp[None], r0[None]
@@ -519,11 +531,12 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         # post-exit slots hold the final cost, so loss curves stay flat
         hist = cost0[:, None].repeat(1, cfg.max_iters)
         it = 0
-        while it < cfg.max_iters and not bool(state.converged.all()):
-            if not cfg.fused_cost:
-                asm = normal_eq(state.params, state.shape, kp, r0, pair_w)
-            state, asm, cost = step(state, kp, r0, pair_w, asm, prec)
-            hist[:, it:] = cost[:, None]
+        while it < cfg.max_iters and not _all_converged(state):
+            with span("multi_frame.trip"):
+                if not cfg.fused_cost:
+                    asm = normal_eq(state.params, state.shape, kp, r0, pair_w)
+                state, asm, cost = step(state, kp, r0, pair_w, asm, prec)
+                hist[:, it:] = cost[:, None]
             it += 1
         result = MultiFrameResult(*state, cost_history=hist)
         if unbatched:

@@ -67,6 +67,7 @@ from smpltpu_torch.energy.reproj import (
 from smpltpu_torch.energy.temporal import temporal_mask
 from smpltpu_torch.models.smpl import SMPLModel
 from smpltpu_torch.solve.lm import LMConfig, LMState, lm_program, lm_solve
+from smpltpu_torch.utils.obs import span
 
 
 class OnlineConfig(NamedTuple):
@@ -284,15 +285,22 @@ class OnlineGraph:
         the problem converges or ``max_iters`` trips have run, reading
         ``converged`` once a trip (after init it is False, so the first
         trip needs no read). The result is in ``state``; returns the trips
-        run."""
-        self._run_init()
+        run. Under a profiler: the spans ``online.init``, ``online.trip``
+        (each trip's launch) and ``online.wait`` (each read)."""
+        with span("online.init"):
+            self._run_init()
         trips = 0
-        while trips < self.max_iters and (
-                trips == 0 or not bool(self.state.converged.all())):
-            self._run_trip()
+        while trips < self.max_iters and (trips == 0 or not self._converged()):
+            with span("online.trip"):
+                self._run_trip()
             trips += 1
         self.trips += trips
         return trips
+
+    def _converged(self) -> bool:
+        """The host's read of ``converged``: it waits for the trip."""
+        with span("online.wait"):
+            return bool(self.state.converged.all())
 
     def set_start(self, x0, shape, has_prev) -> None:
         """Load the stream's start: prev <- x0 (P,), the shape, has_prev."""
@@ -385,19 +393,26 @@ class OnlinePump:
 
     def submit(self, kp_dense):
         """Fit one (K, 4) frame. -> (params (P,) np, cost, iters, solved);
-        solved=False: no valid keypoint, the pose held."""
+        solved=False: no valid keypoint, the pose held. Under a profiler the
+        frame is the span ``online.submit``, its copy to the device
+        ``online.copy_in`` and the read-back ``online.copy_out``."""
         if not self._running:
             raise RuntimeError("pump not started")
+        with span("online.submit"):
+            return self._submit(np.asarray(kp_dense))
+
+    def _submit(self, kp):
         g = self._graph
-        kp = np.asarray(kp_dense)
         if float(kp[:, 3].sum()) <= 0.0:
             return g.prev[0].cpu().numpy().copy(), 0.0, 0, False
-        self._kp_host.copy_(torch.from_numpy(np.ascontiguousarray(
-            kp, dtype=np.float64)).reshape(self._kp_host.shape))
-        g.kp.copy_(self._kp_host, non_blocking=True)
+        with span("online.copy_in"):
+            self._kp_host.copy_(torch.from_numpy(np.ascontiguousarray(
+                kp, dtype=np.float64)).reshape(self._kp_host.shape))
+            g.kp.copy_(self._kp_host, non_blocking=True)
         g.solve()
-        out = torch.cat([g.state.x[0], g.state.cost,
-                         g.state.iters_run.to(g.dtype)]).cpu().numpy()
+        with span("online.copy_out"):
+            out = torch.cat([g.state.x[0], g.state.cost,
+                             g.state.iters_run.to(g.dtype)]).cpu().numpy()
         g.advance()
         return out[:-2], float(out[-2]), int(out[-1]), True
 

@@ -17,6 +17,7 @@ import torch
 
 from smpltpu_torch.energy.params import init_frame_params
 from smpltpu_torch.solve.multi_frame import build_multi_fitter
+from smpltpu_torch.utils.obs import span
 
 
 def interp_tables(anchor_idx, n_frames: int):
@@ -55,7 +56,10 @@ def build_fused_two_stage(spec, cam, cfg1, cfg2, n_shapes: int, anchor_idx,
     ``spec2``: the stage-2 skeleton spec when it differs from stage 1's.
 
     ``run.timings`` holds the wall seconds of the last call's two stages
-    (``stage1_s``, ``stage2_s``), each ended by a device synchronize."""
+    (``stage1_s``, ``stage2_s``), each ended by a device synchronize. Under
+    a profiler the phases are the spans ``two_stage.stage1``,
+    ``two_stage.interp`` (with stage 1's synchronize) and
+    ``two_stage.stage2``."""
     fit1 = build_multi_fitter(spec, cam, cfg1, n_shapes, device=device,
                               dtype=dtype)
     fit2 = build_multi_fitter(spec if spec2 is None else spec2, cam, cfg2,
@@ -76,13 +80,16 @@ def build_fused_two_stage(spec, cam, cfg1, cfg2, n_shapes: int, anchor_idx,
 
     def run(p0a, shape0, kpa, r0a, kpw, r0w, vw):
         t0 = time.perf_counter()
-        st1 = fit1(p0a, shape0, kpa, r0a)
-        poses = interpolate_anchors(st1.params, seg_t, hi_t, t_t)  # (N, P)
-        p0w = torch.where(valid, poses[win_g], init_p)            # (W, wsize, P)
-        sync()
+        with span("two_stage.stage1"):
+            st1 = fit1(p0a, shape0, kpa, r0a)
+        with span("two_stage.interp"):
+            poses = interpolate_anchors(st1.params, seg_t, hi_t, t_t)  # (N, P)
+            p0w = torch.where(valid, poses[win_g], init_p)  # (W, wsize, P)
+            sync()
         t1 = time.perf_counter()
-        st2 = fit2(p0w, st1.shape, kpw, r0w, vw)
-        sync()
+        with span("two_stage.stage2"):
+            st2 = fit2(p0w, st1.shape, kpw, r0w, vw)
+            sync()
         run.timings = {"stage1_s": t1 - t0, "stage2_s": time.perf_counter() - t1}
         return st1, st2
 

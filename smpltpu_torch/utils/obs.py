@@ -1,12 +1,15 @@
-"""Observability (port of ``smpltpu/utils/obs.py``): metrics sinks and
-profiling.
+"""Observability (port of ``smpltpu/utils/obs.py``): metrics sink, spans
+and profiling.
 
-  * MetricsLogger — per-event metrics to a JSONL sink and/or wandb (when
-    the package is importable), beside the pipeline's log.csv; a copy of
-    the reference's class;
+  * MetricsLogger — per-event metrics to a JSONL sink beside the
+    pipeline's log.csv (--metrics-jsonl); the reference's class without
+    its wandb sink;
+  * span — a named range of the program (``torch.profiler.record_function``)
+    while a profiler records, and nothing otherwise;
   * profile_trace — a context manager that records ``torch.profiler``
-    (host operators, and the card's kernels where there is one) and
-    writes a Chrome trace into a directory (--profile on the multi CLI).
+    (host operators, the program's spans, and the card's kernels where
+    there is one) and writes a Chrome trace into a directory (--profile on
+    the multi CLI).
 
 The reference's ``enable_compile_cache`` configures JAX's compilation
 cache and has no counterpart here.
@@ -21,40 +24,42 @@ import os
 import time
 from typing import Optional
 
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking ``name`` over its block in the trace of an
+    active ``torch.profiler`` (host time on the profiler's clock; the
+    block's device work nests under it), or a shared no-op when no profiler
+    records. Unguarded, ``record_function`` costs about two aten calls even
+    with no profiler; the guard costs one flag read."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
 
 class MetricsLogger:
-    """Tiny multi-sink metrics logger. All sinks optional; no-ops cleanly."""
+    """Tiny metrics logger: one JSON line an event to ``jsonl_path``; a
+    no-op without one."""
 
-    def __init__(self, jsonl_path: Optional[str] = None,
-                 use_wandb: bool = False, run_name: str = "smpltpu"):
+    def __init__(self, jsonl_path: Optional[str] = None):
         self._jsonl = None
-        self._wandb = None
         if jsonl_path:
             os.makedirs(os.path.dirname(os.path.abspath(jsonl_path)),
                         exist_ok=True)
             self._jsonl = open(jsonl_path, "a")
-        if use_wandb:
-            try:
-                import wandb  # type: ignore
-                self._wandb = wandb
-                wandb.init(project="smpltpu", name=run_name)
-            except Exception:
-                self._wandb = None
 
     def log(self, event: str, **fields) -> None:
-        rec = {"ts": time.time(), "event": event, **fields}
         if self._jsonl is not None:
+            rec = {"ts": time.time(), "event": event, **fields}
             self._jsonl.write(json.dumps(rec) + "\n")
             self._jsonl.flush()
-        if self._wandb is not None:
-            self._wandb.log({f"{event}/{k}": v for k, v in fields.items()
-                             if isinstance(v, (int, float))})
 
     def close(self) -> None:
         if self._jsonl is not None:
             self._jsonl.close()
-        if self._wandb is not None:
-            self._wandb.finish()
 
 
 @contextlib.contextmanager
@@ -66,7 +71,6 @@ def profile_trace(out_dir: Optional[str]):
     if not out_dir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
