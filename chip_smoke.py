@@ -209,6 +209,13 @@ synthetic video (its first STREAM_FRAMES frames, the shape calibrated on
 its first 10), then phase 8's stream CLI runs: K4 and the trip graph's
 paths against the eager step loop, ~3 minutes.
 
+    python3 chip_smoke.py --smplx
+
+runs phases 1, 2 and SMPL-X's widths on the kernels only (``4 smplx_*``,
+also part of the default run after phase 4): K1 at P = 94 on both routes
+(vectors in shared memory, in global scratch), K2 at (55, 20) on its
+compiled and its run-time-widths instantiation, K3 on 20 908 faces.
+
     python3 chip_smoke.py --k2
 
 runs phases 1, 2 and the 100-frame case of phase 4 only: K2's time by
@@ -580,7 +587,7 @@ def random_arrow_system(rng, w, f, device, scale=1.0, p=76, n_s=10):
 
 
 def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
-               real_system=False, phase_no=3, cluster=None):
+               real_system=False, phase_no=3, cluster=None, generic=False):
     """K1 against the plain version on the same f32 inputs, and both
     against a float64 run of the plain version; then both timed. The
     kernel runs twice and the two outputs must be bitwise identical (the
@@ -598,7 +605,10 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     two f32 reduction orders cannot agree to K1_TOL. The check there is
     that the kernel is no further from the f64 solution than twice the
     plain f32 version's own distance, plus K1_TOL of scale; a wrong kernel
-    lands O(scale) away."""
+    lands O(scale) away.
+
+    ``generic``: also the run-time widths' instantiation on the same
+    inputs, held to the same rule and timed (``generic_ms``)."""
     import torch
     from smpltpu_torch.ops import cg
 
@@ -645,6 +655,22 @@ def k1_compare(label, args, iters, rtol, checks, reps=(20, 3),
     out["ms"] = cuda_ms(kernel, reps[0])
     out["plain_ms"] = cuda_ms(
         lambda: cg.arrow_pcg_torch(*args, iters=iters, rtol=rtol), reps[1])
+    if generic:
+        def kernel_generic():
+            return cg.arrow_pcg_planned(plan, *args, iters=iters, rtol=rtol,
+                                        generic=True)
+        gen = kernel_generic()
+        torch.cuda.synchronize()
+        g_err = max(float((g - w).abs().max()) for g, w in zip(gen, want))
+        g_ok = all(bool(torch.all((g - w).abs() <= K1_TOL * max(
+            float(w.abs().max()), 1.0) + K1_TOL * w.abs()))
+            for g, w in zip(gen, want))
+        checks(g_ok, f"K1 {label}: run-time widths' instantiation not within "
+                     f"K1_TOL of the plain version")
+        out["generic_max_abs_err"] = g_err
+        out["generic_bitwise_equal"] = all(bool(torch.equal(a, b))
+                                           for a, b in zip(gen, got))
+        out["generic_ms"] = cuda_ms(kernel_generic, reps[0])
     rule = ("within 2x the plain f32 distance from f64" if real_system
             else f"within {K1_TOL} of scale of the plain version")
     checks(ok, f"K1 {label}: kernel not {rule}")
@@ -1169,6 +1195,81 @@ def k2_phase(rng, dev, checks, cases):
             k2 = out
         phase(f"4 k2_{label}", ok=k2_ok, **out)
     return k2
+
+
+# SMPL-X's K1 shapes at P = 94 (stage 1 of a 10 000-frame video, its
+# stage 2, and a window whose vectors live in global scratch)
+K1_SMPLX = (("1x1000", 1, 1000), ("667x20", 667, 20), ("1x10000", 1, 10000))
+
+
+def smplx_phase(rng, dev, checks):
+    """``4 smplx_*``: SMPL-X's widths on the kernels. K1 at P = 94, nS =
+    10 at K1_SMPLX's shapes on random SPD systems (both routes: vectors in
+    shared memory and in global scratch), held to K1_TOL of its plain
+    version, run twice and bitwise identical, its compiled P = 94
+    instantiation timed against the run-time widths' one; K2 at (nJ 55, nS 20) on the
+    full-size stand-in, 100 frames, its compiled instantiation and the
+    run-time widths' one each held to K2_ATOL of the plain version and
+    timed by CUDA graph; K3 on those frames' vertices (20 908 faces) at
+    1280 x 720 through both entry points, pixel-exact with
+    ``rasterize_torch``."""
+    import torch
+    from smpltpu_torch.models import SMPLModel
+    from smpltpu_torch.models.smpl import rodrigues
+    from smpltpu_torch.models.smplx import make_synthetic_smplx
+    from smpltpu_torch.ops import lbs
+    from smpltpu_torch.render.zbuffer import rasterize_verts
+    cases = {}
+    for label, n_w, f in K1_SMPLX:
+        a = random_arrow_system(rng, n_w, f, dev, p=94, n_s=10)
+        c = k1_compare(f"smplx_{label}", a, LONG_CG_ITERS, 0.0, checks,
+                       reps=(3, 1), phase_no=4, generic=True)
+        del a
+        cases[label] = {"plan": c["plan"], "ms": c["ms"],
+                        "generic_ms": c["generic_ms"],
+                        "bound_ms": c["bound_ms"], "ok": c["ok"],
+                        "bitwise_repeat": c["bitwise_repeat"]}
+    phase("4 smplx_k1", iters=LONG_CG_ITERS, cases=cases)
+
+    model = SMPLModel.from_dict(make_synthetic_smplx(), device=dev,
+                                dtype=torch.float32)
+    ops = lbs.prepare_lbs_operands(model)
+    b = 100
+    shapes = torch.as_tensor(0.5 * rng.normal(size=(b, model.num_shapes)),
+                             dtype=torch.float32, device=dev)
+    rots = rodrigues(torch.as_tensor(
+        0.3 * rng.normal(size=(b, model.num_joints, 3)), dtype=torch.float32,
+        device=dev))
+    pos = torch.as_tensor(rng.normal(size=(b, 3)) * 0.2 + [0.0, 0.0, 3.0],
+                          dtype=torch.float32, device=dev)
+    g_aff, _ = lbs.joint_affines(model, shapes, rots, pos)
+    g_aff = g_aff.contiguous()
+    want = lbs.lbs_torch(shapes, g_aff, ops)
+    n_s, n_j = model.num_shapes, model.num_joints
+    k2_bound = bound(nbytes(shapes, g_aff, want, ops["v_template_t"],
+                            ops["shapedirs_t"], ops["weights_t"]),
+                     b * model.num_verts * (6 * n_s + 3 + 24 * n_j + 18))
+    k2 = {"n_joints": n_j, "n_shapes": n_s, "frames": b,
+          "bound_ms": k2_bound[0], "bound_by": k2_bound[1]}
+    for route, generic in (("compiled", False), ("generic", True)):
+        got = lbs.lbs(shapes, g_aff, ops, generic=generic)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        ok = err <= K2_ATOL and bool(torch.all(torch.isfinite(got)))
+        checks(ok, f"K2 smplx {route}: kernel vs plain {err} > {K2_ATOL}")
+        k2[route] = {"ok": ok, "max_abs_err": err, "ms": graph_ms(
+            lambda: lbs.lbs(shapes, g_aff, ops, generic=generic), 50)}
+    k2["plain_ms"] = cuda_ms(lambda: lbs.lbs_torch(shapes, g_aff, ops), 10)
+    phase("4 smplx_k2", **k2)
+
+    verts = want.transpose(1, 2).contiguous()
+    faces = torch.as_tensor(model.faces, device=dev)
+    f_px = 0.9 * max(H_R, W_R)
+    intr = (f_px, f_px, 0.5 * W_R, 0.5 * H_R)
+    k3_case("smplx", verts, faces, intr, checks,
+            lambda n_cov, st, g: n_cov > 0)
+    k3_ms = cuda_ms(lambda: rasterize_verts(verts, faces, *intr, H_R, W_R), 10)
+    phase("6 smplx_k3_time", frames=b, faces=int(faces.shape[0]), ms=k3_ms)
 
 
 def assemble_arrow(d, off, tm, b, c):
@@ -3632,6 +3733,10 @@ def main(argv):
         res = bench_run("bench_default", {}, checks)
         phase("13 bench_default", ok=not checks.failed, **res)
         return finish(checks, kind)
+    if argv == ["--smplx"]:
+        phase("3 k1_limits", **cg.device_limits(dev))
+        smplx_phase(rng, dev, checks)
+        return 1 if checks.failed else 0
     if argv == ["--online"]:
         from smpltpu_torch.solve.online import OnlineFitter
         w = workload(dev, STREAM_FRAMES)
@@ -3663,6 +3768,7 @@ def main(argv):
     # 4. K2 vs plain: the full-width model at 100 (timed), 1 and 37 frames,
     # the 300-vertex model, and 7 shapes (the run-time-width instantiation)
     k2 = k2_phase(rng, dev, checks, K2_CASES)
+    smplx_phase(rng, dev, checks)
 
     # 5. main path
     t0 = time.perf_counter()

@@ -30,9 +30,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "smpltpu_arrow_pcg_f32": (_I, [_P] * 10 + [_I] * 5 + [ctypes.c_float]
-                              + [_I] * 6 + [_P]),
+                              + [_I] * 7 + [_P]),
     "smpltpu_arrow_pcg_limits": (_I, [_P]),
     "smpltpu_lbs_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
+    "smpltpu_lbs_generic_f32": (_I, [_P] * 6 + [_I] * 4 + [_P]),
     "smpltpu_raster_i32": (_I, [_P] * 5 + [_I] * 4 + [_P] * 8),
     "smpltpu_raster_verts_f32": (_I, [_P] + [ctypes.c_longlong] * 3 + [_I, _P]
                                  + [ctypes.c_float] * 4 + [_I] * 4 + [_P] * 8),

@@ -42,7 +42,9 @@
 //   per thread (544 threads: a CTA's 7 frames in one round), four
 //   independent accumulators over 16-byte loads; a row stride of 76
 //   floats puts 8 consecutive rows' float4 loads on distinct banks. P = 76
-//   and nS = 10 are template constants for the fit's instantiation.
+//   and nS = 10 are template constants for the fit's instantiation, P = 94
+//   and nS = 10 for the whole-body fit's (SMPL-X; its rows are not 16-byte
+//   aligned, so they take the scalar loop, unrolled).
 // - Cross-CTA traffic never waits on a cluster barrier inside the loop:
 //   cooperative groups' cluster.sync() compiles to a GPU-scope fence and an
 //   L1 invalidation, which cost more than the step's arithmetic. Each
@@ -539,9 +541,12 @@ arrow_pcg_kernel(const float* __restrict__ d_all,    // (W, F, P, P)
 }
 
 // the instantiations: the fit's P = 76 with nS = 10, P = 76 with any nS,
-// any P; and any P with the vectors in global scratch
+// the whole-body fit's P = 94 (SMPL-X: 21 body joints and 12 PCA
+// coefficients a hand) with nS = 10, any P; and any P with the vectors in
+// global scratch
 constexpr int kFitP = 76;
 constexpr int kFitShapes = 10;
+constexpr int kWholeBodyP = 94;
 
 template <typename Kernel>
 cudaError_t set_attributes(Kernel kernel, int smem_optin) {
@@ -589,6 +594,8 @@ extern "C" int smpltpu_arrow_pcg_limits(int* out) {
     e = set_attributes(arrow_pcg_kernel<kFitP, kFitShapes, true>, optin);
   if (e == cudaSuccess)
     e = set_attributes(arrow_pcg_kernel<kFitP, 0, true>, optin);
+  if (e == cudaSuccess)
+    e = set_attributes(arrow_pcg_kernel<kWholeBodyP, kFitShapes, true>, optin);
   if (e == cudaSuccess) e = set_attributes(arrow_pcg_kernel<0, 0, true>, optin);
   if (e == cudaSuccess)
     e = set_attributes(arrow_pcg_kernel<0, 0, false>, optin);
@@ -611,8 +618,10 @@ extern "C" int smpltpu_arrow_pcg_limits(int* out) {
 }
 
 // Launches K1 with the plan of ops/cg.py::k1_plan on `stream`: W clusters
-// of `cluster` CTAs, `smem_bytes` of dynamic shared memory each. Returns
-// cudaGetLastError() (0 on success); no sync, no allocation.
+// of `cluster` CTAs, `smem_bytes` of dynamic shared memory each; `fixed_ok`
+// 0 takes the run-time widths' instantiation whatever P and nS are (to
+// measure a compiled one against it). Returns cudaGetLastError() (0 on
+// success); no sync, no allocation.
 extern "C" int smpltpu_arrow_pcg_f32(const float* d, const float* off,
                                      const float* tm, const float* b,
                                      const float* c, const float* gp,
@@ -621,7 +630,8 @@ extern "C" int smpltpu_arrow_pcg_f32(const float* d, const float* off,
                                      int nS, int iters, float rtol2,
                                      int cluster, int n_res, int vec_len,
                                      int vec_in_smem, int aligned,
-                                     int smem_bytes, void* stream) {
+                                     int smem_bytes, int fixed_ok,
+                                     void* stream) {
   if (W < 1 || F < 1 || P < 1 || P > kMaxP || nS < 1 || nS > kMaxShapes ||
       iters < 0 || cluster < 1 || cluster > kMaxCluster || cluster > F ||
       n_res < 0 || vec_len < (F + cluster - 1) / cluster * P ||
@@ -631,7 +641,11 @@ extern "C" int smpltpu_arrow_pcg_f32(const float* d, const float* off,
   cudaLaunchConfig_t cfg = cluster_config(attr, W * cluster, cluster,
                                           smem_bytes, (cudaStream_t)stream);
   auto kernel = &arrow_pcg_kernel<0, 0, false>;
-  if (vec_in_smem)
+  if (vec_in_smem && !fixed_ok)
+    kernel = &arrow_pcg_kernel<0, 0, true>;
+  else if (vec_in_smem && P == kWholeBodyP && nS == kFitShapes)
+    kernel = &arrow_pcg_kernel<kWholeBodyP, kFitShapes, true>;
+  else if (vec_in_smem)
     kernel = P != kFitP ? &arrow_pcg_kernel<0, 0, true>
              : nS == kFitShapes ? &arrow_pcg_kernel<kFitP, kFitShapes, true>
                                 : &arrow_pcg_kernel<kFitP, 0, true>;

@@ -35,8 +35,11 @@
 // the tile's transforms and shape coefficients are staged into shared
 // memory once, before the loop. The launch picks the largest frame tile
 // (at most kMaxFrameTile) that still gives the card two blocks per SM.
-// Other widths (nJ <= 64, nS <= 16) run the <0, 0> instantiation: one
-// vertex a thread, operands from L1/L2, loops at run time. Every sum runs
+// SMPL-X's widths (nJ 55, nS 20: 10 shape and 10 expression directions)
+// have an instantiation of their own, <55, 20> with one vertex a thread
+// (118 operands in registers; two vertices would not fit). Other widths
+// (nJ <= 64, nS <= 32) run the <0, 0> instantiation: one vertex a
+// thread, operands from L1/L2, loops at run time. Every sum runs
 // in joint order and shape order whatever the tiling, so a vertex's result
 // does not depend on the frame tile or the instantiation's vertices a
 // thread. It runs at 20 us per 100 frames, a third of the bound, still on
@@ -54,9 +57,15 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxJoints = 64;
-constexpr int kMaxShapes = 16;
+constexpr int kMaxShapes = 32;
 constexpr int kMaxFrameTile = 8;
 constexpr int kVertsPerThread = 2;   // of the <24, 10> instantiation
+
+// float4 slots of a frame's shape coefficients in shared memory: 4 (16
+// floats) up to nS = 16, else enough for nS
+__host__ __device__ constexpr int beta_slots4(int nS) {
+  return nS <= 16 ? 4 : (nS + 3) / 4;
+}
 
 // a += wj * G_j, the joint's 3 x 4 transform as its three rows
 __device__ __forceinline__ void blend(float (&a)[12], float wj, float4 r0,
@@ -88,9 +97,9 @@ lbs_kernel(const float* __restrict__ shapes,  // (B, nS)
   const int nJ = kFixed ? NJ : nJ_rt;
   const int nS = kFixed ? NS : nS_rt;
   extern __shared__ float4 smem[];
-  // per frame of the tile: nJ x 3 float4 rows of G, then kMaxShapes betas
+  // per frame of the tile: nJ x 3 float4 rows of G, then the betas
   const int g4 = nJ * 3;
-  const int per_frame4 = g4 + kMaxShapes / 4;
+  const int per_frame4 = g4 + beta_slots4(nS);
 
   const int b0 = blockIdx.y * frame_tile;
   const int nb = min(frame_tile, B - b0);
@@ -216,16 +225,17 @@ static int sm_count(int* sms) {
 
 // Launches K2 on `stream`; returns cudaGetLastError() (0 on success). A
 // block walks the largest frame tile (at most kMaxFrameTile) that still
-// gives the card two blocks per SM.
-extern "C" int smpltpu_lbs_f32(const float* shapes, const float* g,
-                               const float* vt, const float* sd,
-                               const float* wt, float* out, int B, int nV,
-                               int nJ, int nS, void* stream) {
+// gives the card two blocks per SM. `fixed_ok` 0 takes the run-time
+// widths' instantiation whatever the widths (to measure it).
+static int launch_lbs(const float* shapes, const float* g, const float* vt,
+                      const float* sd, const float* wt, float* out, int B,
+                      int nV, int nJ, int nS, void* stream, bool fixed_ok) {
   if (B < 1 || nV < 1 || nJ < 1 || nJ > kMaxJoints || nS < 0
       || nS > kMaxShapes)
     return (int)cudaErrorInvalidValue;
-  const bool fixed = nJ == 24 && nS == 10;
-  const int vpt = fixed ? kVertsPerThread : 1;
+  const bool smpl = fixed_ok && nJ == 24 && nS == 10;
+  const bool smplx = fixed_ok && nJ == 55 && nS == 20;
+  const int vpt = smpl ? kVertsPerThread : 1;
   const int vblocks = (nV + kThreads * vpt - 1) / (kThreads * vpt);
   int sms = 0;
   const int err = sm_count(&sms);
@@ -237,13 +247,33 @@ extern "C" int smpltpu_lbs_f32(const float* shapes, const float* g,
   const int tiles = (B + frame_tile - 1) / frame_tile;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid(vblocks, tiles);
-  const size_t smem = (size_t)frame_tile * (nJ * 3 + kMaxShapes / 4) * sizeof(float4);
+  const size_t smem =
+      (size_t)frame_tile * (nJ * 3 + beta_slots4(nS)) * sizeof(float4);
   cudaStream_t s = (cudaStream_t)stream;
-  if (fixed)
+  if (smpl)
     lbs_kernel<24, 10, kVertsPerThread><<<grid, kThreads, smem, s>>>(
+        shapes, g, vt, sd, wt, out, B, nV, nJ, nS, frame_tile);
+  else if (smplx)
+    lbs_kernel<55, 20, 1><<<grid, kThreads, smem, s>>>(
         shapes, g, vt, sd, wt, out, B, nV, nJ, nS, frame_tile);
   else
     lbs_kernel<0, 0, 1><<<grid, kThreads, smem, s>>>(
         shapes, g, vt, sd, wt, out, B, nV, nJ, nS, frame_tile);
   return (int)cudaGetLastError();
+}
+
+extern "C" int smpltpu_lbs_f32(const float* shapes, const float* g,
+                               const float* vt, const float* sd,
+                               const float* wt, float* out, int B, int nV,
+                               int nJ, int nS, void* stream) {
+  return launch_lbs(shapes, g, vt, sd, wt, out, B, nV, nJ, nS, stream, true);
+}
+
+// The same launch on the run-time widths' instantiation, whatever the
+// widths: the measurement of a compiled instantiation against it.
+extern "C" int smpltpu_lbs_generic_f32(const float* shapes, const float* g,
+                                       const float* vt, const float* sd,
+                                       const float* wt, float* out, int B,
+                                       int nV, int nJ, int nS, void* stream) {
+  return launch_lbs(shapes, g, vt, sd, wt, out, B, nV, nJ, nS, stream, false);
 }

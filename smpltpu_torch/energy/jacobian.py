@@ -7,6 +7,9 @@ Same geometry as the reference module, batched over leading axes:
     ``d x_k = (G_j J_r(theta_j) d) x (x_k - x_j)`` for strict descendants k;
   * shape columns by the parent-prefix recursion FK itself uses;
   * root angle-axis / scale / translation columns in closed form;
+  * for a whole-body layout (PCA hands), each hand coefficient's column
+    by the chain rule through ``mean + coeffs @ components``
+    (``energy/params.py::hand_pca_columns``);
   * the pinhole chain rule with the z-guard branch derivative of
     :func:`smpltpu_torch.energy.reproj.project`.
 
@@ -21,7 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from smpltpu_torch.energy.params import unpack_frame_params
+from smpltpu_torch.energy.params import hand_pca_columns, unpack_frame_params
 from smpltpu_torch.energy.reproj import (
     Camera,
     SkeletonSpec,
@@ -91,7 +94,7 @@ def keypoint_residuals_and_jacobian(
     packed frame vector and the shape vector.
     """
     n_j = len(spec.parents)
-    fp = unpack_frame_params(params_vec, n_j)
+    fp = unpack_frame_params(params_vec, n_j, spec.hands)
     n_s = shape.shape[-1]
     offsets, delta0 = _shaped_offsets(spec, shape)
     rot = rodrigues(fp.joint_aa)                                  # (..., nJ-1,3,3)
@@ -169,8 +172,11 @@ def keypoint_residuals_and_jacobian(
     # chain the world rotation into the pinhole rows first: s * p2 @ q
     p2q = scale[..., None] * (p2 @ q[..., None, :, :])            # (..., K,2,3)
     jdth = torch.einsum("...kca,...kjma->...kcjm", p2q,
-                        gather_joints(dxdth, kp_dense, 3))        # (...,K,2,nJ-1,3)
-    j_p = torch.cat([jds, jda, p2, jdth.flatten(-2)], dim=-1)     # (..., K,2,P)
+                        gather_joints(dxdth, kp_dense, 3)
+                        ).flatten(-2)                             # (...,K,2,3(nJ-1))
+    if spec.hands is not None:
+        jdth = hand_pca_columns(jdth, n_j, spec.hands)
+    j_p = torch.cat([jds, jda, p2, jdth], dim=-1)                 # (..., K,2,P)
     if dxdw is not None:
         j_w = p2q @ gather_joints(dxdw, kp_dense, 2)              # (..., K,2,nS)
     else:

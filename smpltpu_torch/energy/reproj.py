@@ -17,8 +17,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from smpltpu_torch.energy.params import unpack_frame_params
-from smpltpu_torch.models.smpl import SMPLModel, rodrigues
+from smpltpu_torch.energy.params import (
+    frame_param_layout,
+    hand_comps,
+    unpack_frame_params,
+)
+from smpltpu_torch.models.smpl import SMPLModel, require_smpl_width, rodrigues
+from smpltpu_torch.models.smplx import HandPCA
 
 
 class Camera(NamedTuple):
@@ -35,12 +40,25 @@ class SkeletonSpec(NamedTuple):
     base_offsets: torch.Tensor                 # (nJ, 3) parent-relative
     r0: torch.Tensor                           # (3, 3) fixed root orientation
     joint_shape_reg: Optional[torch.Tensor]    # (nJ, 3, nS) or None
+    hands: Optional[HandPCA] = None            # a whole-body model's hands
+
+
+def spec_layout(spec: SkeletonSpec) -> dict:
+    """The frame vector's layout of the model behind ``spec``."""
+    return frame_param_layout(len(spec.parents), hand_comps(spec.hands))
+
+
+def require_smpl_spec(spec: SkeletonSpec, what: str) -> None:
+    """Raise ``UnsupportedModelError`` unless ``spec`` is SMPL's."""
+    require_smpl_width(len(spec.parents), spec.hands, what)
 
 
 def make_skeleton_spec(model: SMPLModel, r0, with_shape: bool) -> SkeletonSpec:
     """Rest-pose bone offsets from the zero-shape, zero-pose model,
     root-anchored (at zero pose FK is the identity, so rest joints are
-    J_regressor @ v_template)."""
+    J_regressor @ v_template). The shape dependence covers the fitted
+    coefficients (``model.num_betas``: SMPL-X's expression is held at
+    zero), and a whole-body model brings its hands' pose space."""
     joints_rest = model.J_regressor @ model.v_template            # (nJ, 3)
     parents = model.parents
     pj = np.where(parents < 0, 0, parents)
@@ -50,12 +68,15 @@ def make_skeleton_spec(model: SMPLModel, r0, with_shape: bool) -> SkeletonSpec:
     if with_shape:
         jsr = model.joint_shape_reg.reshape(model.num_joints, 3,
                                             model.num_shapes)
+        if model.num_betas < model.num_shapes:
+            jsr = jsr[..., :model.num_betas].contiguous()
     return SkeletonSpec(
         parents=parents,
         base_offsets=base_offsets,
         r0=torch.as_tensor(np.asarray(r0), dtype=base_offsets.dtype,
                            device=base_offsets.device),
         joint_shape_reg=jsr,
+        hands=model.hand_pca(),
     )
 
 
@@ -99,7 +120,7 @@ def skeleton_joints_cam(params_vec: torch.Tensor, shape: torch.Tensor,
     leading axes, r0 (..., 3, 3) per-frame root orientation (default
     spec.r0). Returns (..., nJ, 3)."""
     n_j = len(spec.parents)
-    fp = unpack_frame_params(params_vec, n_j)
+    fp = unpack_frame_params(params_vec, n_j, spec.hands)
     offsets, delta0 = _shaped_offsets(spec, shape)
     rot = rodrigues(fp.joint_aa)                              # (..., nJ-1, 3, 3)
     batch = torch.broadcast_shapes(rot.shape[:-3], offsets.shape[:-2])

@@ -8,11 +8,12 @@ import torch
 from smpltpu_torch.energy.params import frame_param_layout
 
 
-def temporal_mask(n_joints: int, *, device, dtype) -> torch.Tensor:
+def temporal_mask(n_joints: int, *, device, dtype,
+                  n_hand_comps: int = 0) -> torch.Tensor:
     """(P,) mask of dims coupled by temporal smoothness: everything except
-    scale (index 0)."""
-    m = torch.ones(frame_param_layout(n_joints)["total"], dtype=dtype,
-                   device=device)
+    scale (index 0), a whole-body layout's hand coefficients included."""
+    m = torch.ones(frame_param_layout(n_joints, n_hand_comps)["total"],
+                   dtype=dtype, device=device)
     m[0] = 0.0
     return m
 

@@ -16,6 +16,14 @@ loader can emit a dense, static-shape per-frame array with N_KP_SLOTS rows
 (one per entry of the reference's 17-slot USE_SMPL iteration, pelvis slot
 duplicated — see smpltpu_torch/constants.py) and a validity column, so a whole
 video batches into one (F, 17, 3) tensor.
+
+The whole-body layout (SMPL-X, ``layout="smplx"``) has 47 slots: the 17
+body slots, then each hand's 15 finger joints (``models/smplx.py``:
+``USE_SMPLX``, ``MP_HAND_MAP``). Its frame files are objects
+``{"pose": [33 landmarks], "left_hand": [21], "right_hand": [21]}`` (a
+MediaPipe Holistic frame; an empty hand list leaves that hand's slots
+invisible); a file in the 33-landmark list format gives its body slots
+and invisible hands.
 """
 
 from __future__ import annotations
@@ -105,6 +113,13 @@ def load_mp_json(
         # unreadable or corrupt file -> treat as "no detection" (the
         # reference skips empty-keypoint frames; we degrade the same way)
         return []
+    return _body_observations(landmarks, width, height, midpoint_default_vis)
+
+
+def _body_observations(landmarks, width: int, height: int,
+                       midpoint_default_vis: float
+                       ) -> List[Tuple[int, float, float]]:
+    """:func:`load_mp_json` on a frame's parsed landmark list."""
     if not isinstance(landmarks, list):
         return []
 
@@ -150,12 +165,50 @@ def keypoints_to_dense(kps: List[Tuple[int, float, float]]) -> np.ndarray:
     return dense
 
 
+def load_holistic_json(path: str, width: int, height: int,
+                       midpoint_default_vis: float = 1.0) -> np.ndarray:
+    """One frame file in the whole-body layout: (47, 4) rows [jid, u, v,
+    valid], the body's 17 slots as :func:`load_mp_json` reads them, then
+    the left hand's 15 and the right hand's. A hand landmark is observed
+    where it has numeric x and y and a visibility (1.0 where absent, as
+    MediaPipe Hands gives none) of at least VISIBILITY_THRESHOLD. A list
+    file is the body alone; an unreadable file, no detection."""
+    from smpltpu_torch.models.smplx import MP_HAND_MAP, USE_SMPLX
+    try:
+        with open(path) as f:
+            frame = json.load(f)
+    except (OSError, ValueError):
+        frame = []
+    body = frame.get("pose", []) if isinstance(frame, dict) else frame
+    dense = np.zeros((len(USE_SMPLX), 4), dtype=np.float64)
+    dense[:, 0] = USE_SMPLX
+    dense[:N_KP_SLOTS] = keypoints_to_dense(_body_observations(
+        body, width, height, midpoint_default_vis))
+    if not isinstance(frame, dict):
+        return dense
+    for h, key in enumerate(("left_hand", "right_hand")):
+        lms = frame.get(key)
+        if not isinstance(lms, list):
+            continue
+        for k, mp in enumerate(MP_HAND_MAP.tolist()):
+            if mp >= len(lms):
+                continue
+            ok_x, x = _coord(lms[mp], "x")
+            ok_y, y = _coord(lms[mp], "y")
+            if (ok_x and ok_y and _number(lms[mp], "visibility", 1.0)
+                    >= VISIBILITY_THRESHOLD):
+                s = N_KP_SLOTS + h * len(MP_HAND_MAP) + k
+                dense[s, 1:] = (x * width, y * height, 1.0)
+    return dense
+
+
 def load_keypoint_dir(
     directory: str,
     width: int,
     height: int,
     midpoint_default_vis: float = 1.0,
     backend: str = "auto",
+    layout: str = "smpl",
 ) -> Tuple[np.ndarray, List[str]]:
     """Load every .json in `directory` (sorted) into one (F, N_KP_SLOTS, 4)
     dense batch. Frames with no detection get an all-invalid row block,
@@ -167,10 +220,26 @@ def load_keypoint_dir(
     give the same batch bit for bit. "auto" is "native". Unlike the
     reference's "auto", which falls back to Python without a word, a
     library that does not build raises here, with the compiler's output
-    and the advice to pass ``backend="python"``."""
+    and the advice to pass ``backend="python"``.
+
+    ``layout="smplx"``: the whole-body layout (F, 47, 4)
+    (:func:`load_holistic_json`). The native parser reads SMPL's layout
+    only, so there "auto" is "python" and "native" raises."""
     if backend not in ("auto", "python", "native"):
         raise ValueError(f"backend must be auto|python|native, got {backend!r}")
+    if layout not in ("smpl", "smplx"):
+        raise ValueError(f"layout must be smpl|smplx, got {layout!r}")
     paths = list_sorted(directory, [".json"])
+    if layout == "smplx":
+        if backend == "native":
+            raise ValueError("the native keypoint parser reads SMPL's 17-slot "
+                             "layout only; the whole-body layout needs "
+                             "backend='python' (or 'auto')")
+        frames = [load_holistic_json(p, width, height, midpoint_default_vis)
+                  for p in paths]
+        from smpltpu_torch.models.smplx import N_KP_SLOTS_SMPLX
+        return (np.stack(frames) if frames
+                else np.zeros((0, N_KP_SLOTS_SMPLX, 4))), paths
     if backend != "python":
         from smpltpu_torch import native
         return native.load_keypoint_dir_native(

@@ -12,6 +12,8 @@ reference lacks (ROADMAP features row):
     resolve_model("/path/to/any.npz")
     resolve_model("synthetic")       # deterministic test fixture
     resolve_model("synthetic:300")   # reduced vertex count
+    resolve_model("synthetic_smplx") # SMPL-X stand-in (models/smplx.py)
+    resolve_model("synthetic_smplx:400")
 
 Search path for named models, in order:
   1. $SMPLTPU_MODEL_DIR
@@ -106,14 +108,22 @@ def model_npz_in_dir(d: str) -> str:
 def resolve_model(spec: str, dtype=None) -> dict:
     """Resolve a model spec to a loaded model dict (smpltpu_torch.io layout).
 
-    spec: a path to an npz, a registry name ('female'|'male'|'neutral'),
-    or 'synthetic[:n_verts]'."""
+    spec: a path to an npz (SMPL's or SMPL-X's), a registry name
+    ('female'|'male'|'neutral'), 'synthetic[:n_verts]' or
+    'synthetic_smplx[:n_verts]'."""
     import numpy as np
 
     from smpltpu_torch.io import load_smpl_npz
+    from smpltpu_torch.models.smplx import SMPLX_NUM_FACES, make_synthetic_smplx
     from smpltpu_torch.models.synthetic import make_synthetic_model
 
     dtype = np.float64 if dtype is None else dtype
+    if spec == "synthetic_smplx" or spec.startswith("synthetic_smplx:"):
+        if ":" not in spec:
+            return make_synthetic_smplx()
+        n_verts = int(spec.split(":", 1)[1])
+        return make_synthetic_smplx(
+            n_verts=n_verts, n_faces=min(SMPLX_NUM_FACES, 2 * n_verts - 4))
     # exact-match magic names only: 'synthetic_avatar/' must mean the
     # DIRECTORY of that name, not the built-in synthetic model
     if spec == "synthetic" or spec.startswith("synthetic:"):

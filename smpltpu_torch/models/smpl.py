@@ -14,10 +14,32 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as tnf
 from torch import nn
+
+from smpltpu_torch.constants import SMPL_NUM_JOINTS
+from smpltpu_torch.models.smplx import SMPLX_HAND_COMPONENTS, HandPCA
 
 _FIELDS = ("v_template", "shapedirs", "J_regressor", "weights",
            "joint_shape_reg", "posedirs")
+# the whole-body model's (SMPL-X) hand pose spaces, absent from SMPL
+_HAND_FIELDS = ("hand_components", "hand_mean")
+
+
+class UnsupportedModelError(ValueError):
+    """A path built for SMPL's 24 joints (the P = 76 frame vector, the 17
+    body slots) was given a model of another width, such as SMPL-X."""
+
+
+def require_smpl_width(n_joints: int, hands, what: str) -> None:
+    """Raise :class:`UnsupportedModelError` unless the model (its joint
+    count and its hand pose space, None for SMPL) is SMPL's."""
+    if hands is not None or n_joints != SMPL_NUM_JOINTS:
+        raise UnsupportedModelError(
+            f"{what} is built for SMPL's {SMPL_NUM_JOINTS} joints and its "
+            f"P = 76 frame vector; this model has {n_joints} joints"
+            f"{' and PCA hands' if hands is not None else ''} (SMPL-X runs "
+            "on the multi CLI's video path; ROADMAP Queue 6)")
 
 
 class SMPLModel(nn.Module):
@@ -28,10 +50,18 @@ class SMPLModel(nn.Module):
     weights (nV, nJ), joint_shape_reg (3*nJ, nS), posedirs (nV, 3, nP) or
     None. ``faces`` (nF, 3) and ``parents`` (nJ,) stay numpy int32: the
     topology is static host data.
+
+    A whole-body model (SMPL-X) also has ``hand_components`` (2, 45, 45),
+    the left and right hands' PCA bases (rows = components), and
+    ``hand_mean`` (2, 45); its ``shapedirs`` hold the ``num_betas`` shape
+    directions and then the expression directions, which skinning takes as
+    one basis and the fit holds at zero. For SMPL both are None and
+    ``num_betas`` is nS.
     """
 
     def __init__(self, v_template, shapedirs, J_regressor, weights,
-                 joint_shape_reg, posedirs, faces, parents):
+                 joint_shape_reg, posedirs, faces, parents,
+                 hand_components=None, hand_mean=None, num_betas=None):
         super().__init__()
         self.register_buffer("v_template", v_template)
         self.register_buffer("shapedirs", shapedirs)
@@ -41,6 +71,9 @@ class SMPLModel(nn.Module):
         self.register_buffer("posedirs", posedirs)
         self.faces = np.asarray(faces, dtype=np.int32)
         self.parents = np.asarray(parents, dtype=np.int32)
+        self.register_buffer("hand_components", hand_components)
+        self.register_buffer("hand_mean", hand_mean)
+        self._num_betas = None if num_betas is None else int(num_betas)
 
     @property
     def num_joints(self) -> int:
@@ -48,7 +81,27 @@ class SMPLModel(nn.Module):
 
     @property
     def num_shapes(self) -> int:
+        """The skinning basis's width (SMPL-X: shape and expression)."""
         return self.shapedirs.shape[-1]
+
+    @property
+    def num_betas(self) -> int:
+        """The shape coefficients the fits solve for."""
+        return self.num_shapes if self._num_betas is None else self._num_betas
+
+    def hand_pca(self, n_comps: int = SMPLX_HAND_COMPONENTS):
+        """The hands' pose space the fits use (the first ``n_comps``
+        components of each hand), or None for a model without one."""
+        if self.hand_components is None:
+            return None
+        return HandPCA(self.hand_components[:, :n_comps], self.hand_mean)
+
+    def skin_shape(self, shape: torch.Tensor) -> torch.Tensor:
+        """Fitted shape coefficients (..., num_betas) as skinning's
+        (..., nS): the expression coefficients after them held at zero.
+        SMPL's come back as they are."""
+        pad = self.num_shapes - shape.shape[-1]
+        return shape if pad == 0 else tnf.pad(shape, (0, pad))
 
     @property
     def num_verts(self) -> int:
@@ -64,8 +117,10 @@ class SMPLModel(nn.Module):
         def as_t(a):
             return torch.tensor(np.asarray(a), dtype=dtype, device=device)
         return cls(
-            **{k: (None if d.get(k) is None else as_t(d[k])) for k in _FIELDS},
-            faces=d["faces"], parents=d["parents"])
+            **{k: (None if d.get(k) is None else as_t(d[k]))
+               for k in _FIELDS + _HAND_FIELDS},
+            faces=d["faces"], parents=d["parents"],
+            num_betas=d.get("num_betas"))
 
     @classmethod
     def from_jax(cls, model, *, device, dtype) -> "SMPLModel":

@@ -248,10 +248,14 @@ def arrow_pcg(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
 
 
 def arrow_pcg_planned(plan: K1Plan, d_blocks, off_scale, tmask, b_pw, c_reg,
-                      g_p, g_w, iters: int, rtol: float = 0.0):
+                      g_p, g_w, iters: int, rtol: float = 0.0,
+                      generic: bool = False):
     """Launch K1 with a given plan (CUDA tensors only). Besides
     ``LAUNCHES["arrow_pcg"]`` it counts the launch under
-    ``"arrow_pcg@{W}x{F}"``, so a run can tell the fit's two stages apart."""
+    ``"arrow_pcg@{W}x{F}"``, so a run can tell the fit's two stages apart.
+    SMPL's P = 76 and SMPL-X's P = 94 (nS = 10) have compiled
+    instantiations; ``generic`` takes the run-time widths' one instead (to
+    measure them against it)."""
     dev = g_p.device
     if dev.type != "cuda":
         raise ValueError(f"arrow_pcg: no kernel for device {dev}")
@@ -279,7 +283,7 @@ def arrow_pcg_planned(plan: K1Plan, d_blocks, off_scale, tmask, b_pw, c_reg,
         None if scratch is None else scratch.data_ptr(),
         w, f, p, n_s, int(iters), float(rtol) * float(rtol),
         plan.cluster, plan.resident_frames, plan.vec_len,
-        int(plan.vec_in_smem), int(aligned), plan.smem_bytes,
+        int(plan.vec_in_smem), int(aligned), plan.smem_bytes, int(not generic),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"arrow_pcg: kernel launch failed with CUDA error "

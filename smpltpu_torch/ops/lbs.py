@@ -47,9 +47,11 @@ def lbs_torch(shapes: torch.Tensor, g_affine: torch.Tensor,
 
 
 def lbs(shapes: torch.Tensor, g_affine: torch.Tensor,
-        operands: dict) -> torch.Tensor:
+        operands: dict, generic: bool = False) -> torch.Tensor:
     """K2 on a CUDA tensor (float32), the plain version on a CPU tensor.
-    Counts its kernel launches in ``LAUNCHES["lbs"]``."""
+    Counts its kernel launches in ``LAUNCHES["lbs"]``. SMPL's (24, 10) and
+    SMPL-X's (55, 20) widths have compiled instantiations; ``generic``
+    takes the run-time widths' one instead (to measure them against it)."""
     dev = shapes.device
     if dev.type == "cpu":
         return lbs_torch(shapes, g_affine, operands)
@@ -69,7 +71,8 @@ def lbs(shapes: torch.Tensor, g_affine: torch.Tensor,
             raise ValueError(f"lbs: {name} must be contiguous")
     lib = _build.load()
     out = torch.empty((b, 3, n_v), dtype=torch.float32, device=dev)
-    err = lib.smpltpu_lbs_f32(
+    launch = lib.smpltpu_lbs_generic_f32 if generic else lib.smpltpu_lbs_f32
+    err = launch(
         shapes.data_ptr(), g_affine.data_ptr(),
         operands["v_template_t"].data_ptr(), operands["shapedirs_t"].data_ptr(),
         operands["weights_t"].data_ptr(), out.data_ptr(), b, n_v, n_j, n_s,

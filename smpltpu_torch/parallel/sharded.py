@@ -43,7 +43,12 @@ import torch
 
 from smpltpu_torch.constants import SCALE_MAX, SCALE_MIN
 from smpltpu_torch.energy.params import frame_param_layout
-from smpltpu_torch.energy.reproj import Camera, SkeletonSpec, keypoint_residuals
+from smpltpu_torch.energy.reproj import (
+    Camera,
+    SkeletonSpec,
+    keypoint_residuals,
+    require_smpl_spec,
+)
 from smpltpu_torch.energy.temporal import temporal_mask
 from smpltpu_torch.parallel.mesh import FramesMesh
 from smpltpu_torch.solve.lm import LMResult, _huber_rho
@@ -103,6 +108,7 @@ class _Sharded:
     all-reduced dot product and the system's matvec."""
 
     def __init__(self, mesh, spec, cam, cfg, n_shapes, dtype):
+        require_smpl_spec(spec, "the sharded solvers")
         n_joints = len(spec.parents)
         lay = frame_param_layout(n_joints)
         dev = mesh.device

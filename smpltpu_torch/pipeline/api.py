@@ -23,7 +23,7 @@ import torch
 from smpltpu_torch.constants import init_root_rotation
 from smpltpu_torch.energy.params import N_FRAME_PARAMS, init_frame_params
 from smpltpu_torch.energy.reproj import make_skeleton_spec
-from smpltpu_torch.models.smpl import SMPLModel
+from smpltpu_torch.models.smpl import SMPLModel, require_smpl_width
 from smpltpu_torch.pipeline.common import batched_frame_eval
 from smpltpu_torch.solve.multi_frame import MultiFrameConfig, build_multi_fitter
 from smpltpu_torch.solve.online import OnlineConfig, OnlineFitter
@@ -78,6 +78,7 @@ def fit_video(
     detection hold the previous pose and report converged=False)."""
     dev = torch.device(device)
     model = SMPLModel.from_dict(model_dict, device=dev, dtype=dtype)
+    require_smpl_width(model.num_joints, model.hand_pca(), "fit_video")
     cam = default_intrinsics(width, height, device=dev, dtype=dtype)
     r0 = np.asarray(init_root_rotation(), np.float64)
     n_frames = kp_batch.shape[0]

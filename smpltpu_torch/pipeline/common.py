@@ -106,8 +106,10 @@ def load_dataset(smpl_path: str, kps_folder: str, img_folder: str,
             model_dir = None
     model = SMPLModel.from_dict(model_dict, device=device, dtype=dtype)
 
+    # a whole-body model reads the 47-slot layout (io/keypoints.py)
     kp_batch, json_paths = load_keypoint_dir(
-        kps_folder, width, height, midpoint_default_vis)
+        kps_folder, width, height, midpoint_default_vis,
+        layout="smpl" if model.hand_pca() is None else "smplx")
     if len(json_paths) == 0:
         raise ValueError(f"No JSON files in {kps_folder}")
 
@@ -136,8 +138,9 @@ def batched_frame_eval(model: SMPLModel, params, shapes, r0, kp, cam: Camera,
                        want_verts: bool = True):
     """Every frame's evaluation error and (optionally) skinned vertices.
 
-    params (F, P), shapes (F, nS), r0 (F, 3, 3), kp (F, K, 4), as tensors
-    or numpy arrays; they are moved to the model's device and dtype. The FK
+    params (F, P), shapes (F, num_betas), r0 (F, 3, 3), kp (F, K, 4), as
+    tensors or numpy arrays; they are moved to the model's device and
+    dtype. The FK
     stage (``joint_affines``) runs for all frames at once; the skinning
     runs through K2 (``ops/lbs.py::lbs``) in batches of SKIN_BATCH frames.
     Returns (errors (F,) numpy, verts (F, nV, 3) numpy or None)."""
@@ -146,7 +149,8 @@ def batched_frame_eval(model: SMPLModel, params, shapes, r0, kp, cam: Camera,
     def to(a):
         return torch.as_tensor(a).to(device=dev, dtype=dt)
     params, shapes, r0, kp = to(params), to(shapes), to(r0), to(kp)
-    pose = params_to_pose(params, r0, model.num_joints)
+    shapes = model.skin_shape(shapes)
+    pose = params_to_pose(params, r0, model.num_joints, model.hand_pca())
     g_aff, joints = joint_affines(model, shapes, pose.rotations, pose.root_pos)
     err = mean_pixel_error(joints, kp, cam).cpu().numpy()
     if not want_verts:
@@ -208,8 +212,9 @@ def render_frames(model: SMPLModel, params, shape, r0, cam: Camera,
                   height: int, width: int):
     """Render every frame on the model's device: the port of the render
     pass of ``bench.py`` (:384-453). params (F, P) per-frame parameters,
-    shape (nS,) shared or (F, nS), r0 (3, 3) shared or (F, 3, 3), as
-    tensors or numpy arrays. In chunks of SKIN_BATCH frames: FK, skinning
+    shape (num_betas,) shared or (F, num_betas), r0 (3, 3) shared or
+    (F, 3, 3), as tensors or numpy arrays (a whole-body model: its hands
+    expanded, its expression at zero). In chunks of SKIN_BATCH frames: FK, skinning
     through K2 (``ops/lbs.py::lbs``), then face setup and z-buffer in K3
     (``render/zbuffer.py::rasterize_verts``), which writes each chunk
     straight into its frames of the result; the vertices never leave the
@@ -228,8 +233,10 @@ def _render_frames(model, params, shape, r0, cam, height, width):
         return torch.as_tensor(a).to(device=dev, dtype=dt)
     params, shape, r0 = to(params), to(shape), to(r0)
     n = params.shape[0]
+    shape = model.skin_shape(shape)
     shape = shape.expand(n, shape.shape[-1])
     r0 = r0.expand(n, 3, 3)
+    hands = model.hand_pca()
     ops = prepare_lbs_operands(model)
     faces = torch.as_tensor(model.faces, device=dev)
     intr = _intrinsics(cam)
@@ -238,7 +245,8 @@ def _render_frames(model, params, shape, r0, cam, height, width):
     for s in range(0, n, SKIN_BATCH):
         e = min(s + SKIN_BATCH, n)
         with span("render.fk"):
-            pose = params_to_pose(params[s:e], r0[s:e], model.num_joints)
+            pose = params_to_pose(params[s:e], r0[s:e], model.num_joints,
+                                  hands)
             shp = shape[s:e].contiguous()
             g_aff, _ = joint_affines(model, shp, pose.rotations, pose.root_pos)
         with span("render.lbs"):

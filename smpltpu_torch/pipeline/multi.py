@@ -7,6 +7,13 @@ frames with a shared shape, then sliding-window refinement.
         [anchor_skip=10] [window=20] [overlap=5] [beta_pose=5.0]
         [beta_shape=25.0] [lambda_temp=3.0] [flags]
 
+The model may be SMPL or SMPL-X (an SMPL-X npz, or ``synthetic_smplx``):
+SMPL-X is fitted in its whole-body layout (P = 94: the body's 21 joint
+angles and 12 PCA coefficients a hand) to 47 keypoint slots, whose frame
+files are MediaPipe Holistic objects (``io/keypoints.py``); the paths
+built for SMPL's joints (``--multi-start``, ``--data-init``, ``--mesh``)
+refuse it with ``UnsupportedModelError``.
+
 It reads MediaPipe JSONs and frames, fits, and writes ``log.csv``
 (anchors, then every frame), ``params_multi.npz``, ``loss_curve.txt``, one
 overlay ``frame_<i>_multi.png`` per frame and a checkpoint per window.
@@ -84,7 +91,8 @@ import torch
 
 from smpltpu_torch.constants import init_root_rotation
 from smpltpu_torch.energy import make_skeleton_spec
-from smpltpu_torch.energy.params import init_frame_params
+from smpltpu_torch.energy.params import hand_comps, init_frame_params
+from smpltpu_torch.models.smpl import UnsupportedModelError, require_smpl_width
 from smpltpu_torch.parallel import (
     build_sharded_lm_fitter,
     mesh_size,
@@ -116,7 +124,7 @@ from smpltpu_torch.solve.single_frame import build_fitter, make_single_frame_pro
 from smpltpu_torch.utils.ckpt import ORBAX_REFUSED, load_checkpoint, save_checkpoint
 from smpltpu_torch.utils.obs import MetricsLogger, profile_trace
 
-USAGE = """usage: python -m smpltpu_torch.pipeline.multi <SMPL.npz> <kps_folder> <image_folder> <out_dir>
+USAGE = """usage: python -m smpltpu_torch.pipeline.multi <SMPL.npz|SMPLX.npz|synthetic[_smplx]> <kps_folder> <image_folder> <out_dir>
              [max_iters=120] [max_iters_stage2=120] [anchor_skip=15] [window=30] [overlap=10]
              [beta_pose=5.0] [beta_shape=25.0]
 """
@@ -317,10 +325,22 @@ def _run(opts, dev, mesh_n, mesh) -> int:
     def warm_up(spec_w, cfg, args):
         """One LM trip of the solve ``cfg`` runs, on ``args``: the kernels
         are built and the libraries' handles made before the timed call."""
-        build_multi_fitter(spec_w, cam, one_trip(cfg), model.num_shapes,
+        build_multi_fitter(spec_w, cam, one_trip(cfg), model.num_betas,
                            device=dev, dtype=dtype)(*args)
 
     model, cam = ds["model"], ds["cam"]
+    # a whole-body model (SMPL-X) runs the fit and the render; the paths
+    # built for SMPL's joints refuse it by name
+    smpl_only = [what for on, what in (
+        (opts["multi_start"], "--multi-start (single-frame fits)"),
+        (opts["data_init"], "--data-init (SMPL's rest joints)"),
+        (mesh is not None, "--mesh (the sharded solvers)")) if on]
+    for what in smpl_only:
+        try:
+            require_smpl_width(model.num_joints, model.hand_pca(), what)
+        except UnsupportedModelError as e:
+            print(f"UnsupportedModelError: {e}", file=sys.stderr)
+            return 1
     n_frames = ds["kp_batch"].shape[0]
     print(f"[INFO] frames: {opts['img_folder']}  = {n_frames:4d}\n"
           f"[INFO] anchor skip     : {opts['skip']}\n"
@@ -343,7 +363,8 @@ def _run(opts, dev, mesh_n, mesh) -> int:
                make_skeleton_spec(model, init_root_rotation(), with_shape=True))
     kp = ds["kp_batch"].astype(np.float32)
     default_pose = init_frame_params(
-        device="cpu", dtype=torch.float32).numpy()
+        model.num_joints, device="cpu", dtype=torch.float32,
+        n_hand_comps=hand_comps(spec.hands)).numpy()
     poses = np.tile(default_pose, (n_frames, 1))
     if opts["multi_start"]:
         # framework extension: seed every frame with its best-of-starts
@@ -380,7 +401,7 @@ def _run(opts, dev, mesh_n, mesh) -> int:
             orient=opts["orient_init"]).astype(np.float32)
     r0 = np.tile(np.asarray(init_root_rotation(), dtype=np.float32),
                  (n_frames, 1, 1))
-    shape_w = np.zeros(model.num_shapes, dtype=np.float32)
+    shape_w = np.zeros(model.num_betas, dtype=np.float32)
 
     metrics = MetricsLogger(jsonl_path=opts["metrics_jsonl"] if rank == 0
                             else None)
@@ -456,13 +477,13 @@ def _run(opts, dev, mesh_n, mesh) -> int:
             a_v = np.zeros(n_a + pad, np.float32)
             a_v[:n_a] = 1.0
             fit1 = build_sharded_lm_fitter(mesh, spec, cam, cfg1,
-                                           model.num_shapes, dtype=dtype)
+                                           model.num_betas, dtype=dtype)
             args1 = (t(a_p), t(shape_w), t(a_k), t(a_r), t(a_v))
             build_sharded_lm_fitter(mesh, spec, cam, one_trip(cfg1),
-                                    model.num_shapes, dtype=dtype)(*args1)
+                                    model.num_betas, dtype=dtype)(*args1)
             sync()
         else:
-            fit1 = build_multi_fitter(spec, cam, cfg1, model.num_shapes,
+            fit1 = build_multi_fitter(spec, cam, cfg1, model.num_betas,
                                       device=dev, dtype=dtype)
             args1 = (t(poses[anchor_idx]), t(shape_w), t(kp[anchor_idx]),
                      t(r0[anchor_idx]))
@@ -520,7 +541,7 @@ def _run(opts, dev, mesh_n, mesh) -> int:
                             max_iters=opts["s2_iters"],
                             linear=opts["linear"],
                             cg_rtol=opts["cg_rtol"])
-    fit2 = build_multi_fitter(spec_s2, cam, cfg2, model.num_shapes,
+    fit2 = build_multi_fitter(spec_s2, cam, cfg2, model.num_betas,
                               device=dev, dtype=dtype)
     wsize = opts["wsize"]
     eye3 = np.eye(3, dtype=np.float32)
@@ -587,7 +608,7 @@ def _run(opts, dev, mesh_n, mesh) -> int:
             # call (solve/two_stage.py); bp and bw are not consumed, the
             # window starts and the shared shape come out of stage 1
             fufit = build_fused_two_stage(
-                spec, cam, cfg1, cfg2, model.num_shapes, anchor_idx,
+                spec, cam, cfg1, cfg2, model.num_betas, anchor_idx,
                 starts, wsize, n_frames, device=dev, dtype=dtype,
                 spec2=spec_s2)
             fu_args = (t(poses[anchor_idx]), t(shape_w), t(kp[anchor_idx]),
@@ -595,7 +616,7 @@ def _run(opts, dev, mesh_n, mesh) -> int:
             print("[INFO] fused two-stage: anchors, interpolation and "
                   "windows in one call (timed after a warm-up call)")
             build_fused_two_stage(
-                spec, cam, one_trip(cfg1), one_trip(cfg2), model.num_shapes,
+                spec, cam, one_trip(cfg1), one_trip(cfg2), model.num_betas,
                 anchor_idx, starts, wsize, n_frames, device=dev, dtype=dtype,
                 spec2=spec_s2)(*fu_args)
             sync()

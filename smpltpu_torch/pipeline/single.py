@@ -54,6 +54,7 @@ import torch
 
 from smpltpu_torch.constants import init_root_rotation
 from smpltpu_torch.energy.params import N_FRAME_PARAMS, init_frame_params
+from smpltpu_torch.models.smpl import UnsupportedModelError, require_smpl_width
 from smpltpu_torch.pipeline.common import (
     StageTimer,
     append_log,
@@ -189,6 +190,11 @@ def _run(opts, dev, mesh_n, mesh) -> int:
                           opts["img_folder"], midpoint_default_vis=0.0,
                           device=dev, dtype=dtype,
                           pose_prior_path=opts["pose_prior"])
+        require_smpl_width(ds["model"].num_joints, ds["model"].hand_pca(),
+                           "the single-frame CLI (SMPL's held joints)")
+    except UnsupportedModelError as e:
+        print(f"UnsupportedModelError: {e}", file=sys.stderr)
+        return 1
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1

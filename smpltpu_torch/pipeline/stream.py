@@ -46,6 +46,7 @@ import sys
 import numpy as np
 import torch
 
+from smpltpu_torch.models.smpl import UnsupportedModelError, require_smpl_width
 from smpltpu_torch.pipeline.common import (
     StageTimer,
     append_log,
@@ -139,6 +140,11 @@ def main(argv=None, *, device="cuda", dtype=torch.float32) -> int:
                           opts["img_folder"], midpoint_default_vis=1.0,
                           device=dev, dtype=dtype,
                           pose_prior_path=opts["pose_prior"])
+        require_smpl_width(ds["model"].num_joints, ds["model"].hand_pca(),
+                           "the stream CLI (the online trip, K4)")
+    except UnsupportedModelError as e:
+        print(f"UnsupportedModelError: {e}", file=sys.stderr)
+        return 1
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1

@@ -46,8 +46,13 @@ import torch.nn.functional as tnf
 
 from smpltpu_torch.constants import HUBER_DELTA, SCALE_MAX, SCALE_MIN
 from smpltpu_torch.energy.jacobian import keypoint_residuals_and_jacobian
-from smpltpu_torch.energy.params import frame_param_layout
-from smpltpu_torch.energy.reproj import Camera, SkeletonSpec, keypoint_residuals
+from smpltpu_torch.energy.params import hand_comps
+from smpltpu_torch.energy.reproj import (
+    Camera,
+    SkeletonSpec,
+    keypoint_residuals,
+    spec_layout,
+)
 from smpltpu_torch.energy.temporal import temporal_mask
 from smpltpu_torch.ops import cg as cg_ops
 from smpltpu_torch.ops.cg import window_dot
@@ -254,7 +259,7 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         raise ValueError(f"unknown jacobian {cfg.jacobian!r} (analytic | jvp)")
 
     n_joints = len(spec.parents)
-    lay = frame_param_layout(n_joints)
+    lay = spec_layout(spec)
     p_dim = lay["total"]
     aa0, aa1 = lay["joint_aa"]
 
@@ -263,7 +268,8 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
     bp2 = scalar(cfg.beta_pose) * scalar(cfg.beta_pose)
     bs2 = scalar(cfg.beta_shape) * scalar(cfg.beta_shape)
     lam = scalar(cfg.lambda_temporal)
-    tmask = temporal_mask(n_joints, device=device, dtype=dtype)   # (P,)
+    tmask = temporal_mask(n_joints, device=device, dtype=dtype,
+                          n_hand_comps=hand_comps(spec.hands))    # (P,)
     tm2_diag = torch.diag(tmask * tmask)
     psel = torch.zeros(p_dim, dtype=dtype, device=device)
     psel[aa0:aa1] = 1.0

@@ -69,6 +69,7 @@ from smpltpu_torch.energy.reproj import (
     keypoint_residuals,
     make_skeleton_spec,
     parent_tables,
+    require_smpl_spec,
 )
 from smpltpu_torch.energy.temporal import temporal_mask
 from smpltpu_torch.models.smpl import SMPLModel
@@ -128,6 +129,7 @@ def _online_problem(spec: SkeletonSpec, cam: Camera, cfg: OnlineConfig,
     (``ops/online.py::online_normal``), the GMM rows, where there is a
     GMM, added to its g, H and cost from their eager residual and
     Jacobian."""
+    require_smpl_spec(spec, "the online fit (K4, SMPL's held joints)")
     device = _device(device)
     lay = frame_param_layout(n_joints)
     p_dim = lay["total"]

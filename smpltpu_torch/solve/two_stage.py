@@ -5,7 +5,8 @@ into window starts, on the device -> the batched stage-2 window solve.
 Same semantics as the reference (and as its sequential recipe): the
 interpolation runs between consecutive anchors and holds the last anchor
 past its end, and window frames beyond the video end get the blind init
-(masked by frame_valid).
+(masked by frame_valid). A whole-body layout's hand coefficients are
+interpolated linearly, as every other dim of the frame vector.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import time
 import numpy as np
 import torch
 
-from smpltpu_torch.energy.params import init_frame_params
+from smpltpu_torch.energy.params import hand_comps, init_frame_params
 from smpltpu_torch.solve.multi_frame import build_multi_fitter
 from smpltpu_torch.utils.obs import span
 
@@ -72,7 +73,8 @@ def build_fused_two_stage(spec, cam, cfg1, cfg2, n_shapes: int, anchor_idx,
              + np.arange(wsize)[None])                            # (W, wsize)
     valid = torch.as_tensor(win_f < n_frames, device=device)[..., None]
     win_g = torch.as_tensor(np.clip(win_f, 0, n_frames - 1), device=device)
-    init_p = init_frame_params(len(spec.parents), device=device, dtype=dtype)
+    init_p = init_frame_params(len(spec.parents), device=device, dtype=dtype,
+                               n_hand_comps=hand_comps(spec.hands))
 
     def sync():
         if torch.device(device).type == "cuda":

@@ -21,9 +21,10 @@ class Pose(NamedTuple):
 
 
 def params_to_pose(params_vec: torch.Tensor, r0: torch.Tensor,
-                   n_joints: int) -> Pose:
-    """params (..., P), r0 (..., 3, 3) -> Pose with the same leading axes."""
-    fp = unpack_frame_params(params_vec, n_joints)
+                   n_joints: int, hands=None) -> Pose:
+    """params (..., P), r0 (..., 3, 3) -> Pose with the same leading axes;
+    ``hands``: a whole-body model's hand space (``SMPLModel.hand_pca``)."""
+    fp = unpack_frame_params(params_vec, n_joints, hands)
     root_rot = rodrigues(fp.root_aa) @ r0
     rotations = torch.cat([root_rot[..., None, :, :],
                            rodrigues(fp.joint_aa)], dim=-3)
