@@ -73,23 +73,29 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
 8. the streaming path, phases ``10 stream_*`` (``stream_phases``):
    bench.py's BENCH_STREAM, BENCH_STREAM_SCAN and BENCH_STREAM_PUMP
    workload, the first STREAM_FRAMES frames with the shape of the timed
-   fit's stage 1; first ``10 stream_kernel`` (``online_kernel_phase``):
-   K4, the trip's linearization and trial cost, at the stream
-   configuration's widths with the benchmark's weights and feed, held in
-   six cases to the eager composition in float32 and float64 within
-   ONLINE_KERNEL_TOL, one frame on the trip graph with K4 and with the
-   eager composition the same trips and pose in float64, solved 100 times
-   bitwise the same in float32, its launches and the trip graph timed
-   beside the eager composition's; then the online trip's factorizations
-   and solves captured into CUDA graphs at batch 1 under sync-debug
-   "error"; the eager step loop (latency, LM trips, device launches and
-   host syncs a trip); the step loop in float64, its mean px against
-   float32's; the causal replay on the CUDA graph of one LM trip and the
-   request pump, K4's launches in them counted by mode against the trips
-   and frames run, each held to the float64 step loop within
-   STREAM_F32_APART_MAX of scale; both again in float64 (K4's float64
-   build), held to the float64 step loop within STREAM_AGREE_MAX, trip for
-   trip; held frames bit-equal to the frame before in all three paths.
+   fit's stage 1; first ``10 stream_kernel`` (``online_kernel_phase``): K4,
+   the trip's linearization and trial cost, at the stream configuration's
+   widths with the benchmark's weights and feed, held in six cases to the
+   eager composition in float32 and float64 within ONLINE_KERNEL_TOL, one
+   frame on the trip graph with K4 and with the eager composition the same
+   trips and pose in float64, solved 100 times bitwise the same in float32,
+   its launches and the trip graph timed beside the eager composition's;
+   ``10 stream_tr_step`` (``tr_step_phase``): K5, the trip's trust-region
+   step, held to ``chol_tr_step`` within TR_STEP_TOL in float64 and float32
+   on six systems (interior, boundary, badly scaled, not positive definite
+   twice, pinned frozen dims) and the stream's own, the NaNs and the
+   boundary flags the same, as a batch of four and replayed in a CUDA graph
+   bitwise, its times beside chol_tr_step's; then the online trip's
+   factorizations and solves captured into CUDA graphs at batch 1 under
+   sync-debug "error"; the eager step loop (latency, LM trips, device
+   launches and host syncs a trip); the step loop in float64, its mean px
+   against float32's; the causal replay on the CUDA graph of one LM trip
+   and the request pump, K4's launches in them counted by mode and K5's
+   against the trips and frames run, each held to the float64 step loop
+   within STREAM_F32_APART_MAX of scale; both again in float64 (K4's and
+   K5's float64 builds), held to the float64 step loop within
+   STREAM_AGREE_MAX, trip for trip; held frames bit-equal to the frame
+   before in all three paths.
 9. the port's CLIs through ``main(argv)`` on the card, each run in a
    directory under ``build/chip_smoke_cli`` (removed afterwards), phases
    ``8 cli_*``: ``cli_default`` (the full-width synthetic model on
@@ -109,8 +115,8 @@ It builds the port's kernels from ``smpltpu_torch/csrc`` and runs, in order:
    data/avatar-model, the full-width model on video1; each mean held to
    the CPU run's; the three stream paths again in float64; their rows to
    the float64 default path's, within CLI_STREAM_ROWS_AGREE_PX in float64
-   and CLI_STREAM_ROWS_F32_PX in float32; K4 in the scan and the pump
-   alone). Every K3
+   and CLI_STREAM_ROWS_F32_PX in float32; K4 and K5 in the scan and the
+   pump alone). Every K3
    launch of the runs with K3 is held pixel-exact against
    ``rasterize_torch``; each line carries the run's wall s, stage ms (the
    stream CLI's latency line) and kernel launches. ``8 api_fit_video``:
@@ -336,6 +342,19 @@ ONLINE_KERNEL_CASES = {
 }
 ONLINE_KERNEL_REPLAYS = 100    # one frame solved again and again, bitwise
 ONLINE_KERNEL_REPS = 200       # launches a timing graph holds
+# K5 (ops/trust_region.py::tr_step) against solve/lm.py::chol_tr_step on
+# the card, the step's largest difference over its largest |entry|, NaN
+# where the other's is NaN: both factor the same shifted matrices in other
+# orders; on these systems (the badly scaled one by powers of two, so
+# equilibrated it is well conditioned) float64 reads ~1e-15 and float32
+# ~1e-6, on the stream's own (the pinned H of its first frame) up to
+# 5.1e-14 and 2.4e-5 (an H100)
+TR_STEP_TOL = {"float32": 1e-4, "float64": 1e-12}
+TR_STEP_CASES = ("interior", "boundary", "ill_conditioned", "not_pd",
+                 "not_pd_recovers", "frozen")
+TR_STEP_P, TR_STEP_ITERS = 76, 4
+# the online fit's frozen dims: the scale, joints 10 11 22 23
+TR_STEP_FROZEN = [0] + list(range(34, 40)) + list(range(70, 76))
 STREAM_F64_GAP_MAX_PX = 0.1    # the f32 loop's mean px against f64's
 STREAM_PROFILE_TRIPS = 10      # the profiled one-frame step
 STREAM_PROFILE_FRAMES = 5      # the profiled scan (the profiler digests
@@ -1836,10 +1855,10 @@ def cli_stream_phases(checks):
     """Phase 8's stream CLI runs: ``CLI_STREAM_RUNS`` (float32, the CLI as
     a user runs it), each mean against the CPU run's; then its three paths
     again in float64 (``main(argv, dtype=torch.float64)``, no render). K4
-    runs in the scan's and the pump's trip graph and not in the default
-    path. ``cli_stream_paths``: the float64 paths' rows held to each other
-    within CLI_STREAM_ROWS_AGREE_PX, each float32 path's rows to the
-    float64 default path's within CLI_STREAM_ROWS_F32_PX."""
+    and K5 run in the scan's and the pump's trip graph and not in the
+    default path. ``cli_stream_paths``: the float64 paths' rows held to
+    each other within CLI_STREAM_ROWS_AGREE_PX, each float32 path's rows to
+    the float64 default path's within CLI_STREAM_ROWS_F32_PX."""
     import shutil
     import torch
 
@@ -1869,11 +1888,12 @@ def cli_stream_phases(checks):
             render = "--jax-render" in extra
             graphed = "--scan" in extra or "--pump" in extra
             k4 = res["launches"].get("online_normal", 0)
+            k5 = res["launches"].get("tr_step", 0)
             ok = bool(gap <= CLI_STREAM_GAP_MAX_PX and n_rows > 0
                       and res["latency_ms"] is not None
                       and res["params_shape"] == [[n_kp, 76], [n_kp, 10]]
                       and res["pngs"] == (n_rows if render else 0)
-                      and (k4 > 0) == graphed
+                      and (k4 > 0) == graphed and (k5 > 0) == graphed
                       and (not render
                            or (res["launches"].get("lbs", 0) > 0
                                and res["launches"].get("raster", 0)
@@ -2211,8 +2231,8 @@ def capture_checks(dev):
 
 def eager_graph(spec, cam, cfg, n_joints, dev, dtype, gmm=None):
     """An ``OnlineGraph`` whose trip runs the eager composition
-    (``solve/lm.py::plain_linearization``) where K4 would run: the trip
-    graph as it was before K4."""
+    (``solve/lm.py::plain_linearization`` and ``chol_tr_step``) where K4
+    and K5 would run: the trip graph as it was before K4."""
     from smpltpu_torch.solve import online as on
     real_problem = on._online_problem
     on._online_problem = lambda *a, **k: real_problem(*a, **k)._replace(
@@ -2296,8 +2316,9 @@ def online_kernel_cases(dev):
                                       dtype=dtype)
             ins = [torch.as_tensor(a, device=dev).to(dtype) for a in (
                 shape, kp, x_opt, torch.full((1,), kw["has_prev"]))]
-            lin, cost = (prob.kernel_of(*ins) if kernel else plain_linearization(
-                prob.residual_of(*ins), cfg.huber_delta, prob.frozen))
+            lin, cost = (prob.kernel_of(*ins)[:2] if kernel
+                         else plain_linearization(prob.residual_of(*ins),
+                                                  cfg.huber_delta, prob.frozen))
             g, h = lin(x.to(dtype))
             res[name] = [t.to(f64) for t in (g, h, cost(x.to(dtype)),
                                             cost(x_new.to(dtype)))]
@@ -2381,7 +2402,7 @@ def online_kernel_cases(dev):
                                torch.ones(1, device=dev))]
     prob = on._online_problem(fit.spec, fit.cam, fit.cfg, n_j, None,
                               device=dev, dtype=f32)
-    lin_k, cost_k = prob.kernel_of(*ins)
+    lin_k, cost_k, _ = prob.kernel_of(*ins)
     lin_e, cost_e = plain_linearization(prob.residual_of(*ins),
                                         fit.cfg.huber_delta, prob.frozen)
     x32 = x_off.to(f32)
@@ -2393,6 +2414,196 @@ def online_kernel_cases(dev):
     return {"cases": out, "failed": failed, "replays": ONLINE_KERNEL_REPLAYS,
             "replays_bitwise": same, "one_frame": one_frame,
             "max_abs_err": max_abs, "max_rel_err": max_rel, "ms": ms}
+
+
+def tr_step_systems(dtype, dev, p=TR_STEP_P, seed=0):
+    """{case: (h (1, P, P), g (1, P), radius (1,))} in ``dtype`` on ``dev``,
+    one for each of ``TR_STEP_CASES``: an SPD h (eigenvalues 0.5..50)
+    whose Gauss-Newton step lies inside the radius ("interior") or ten
+    times outside it ("boundary", all four Newton trips); that h scaled
+    by powers of two from 2^-10 to 2^10 (condition ~1e12), the radius at
+    0.3 of its Newton step ("ill_conditioned"); h - 100 I, no shift of
+    four trips factorizes it ("not_pd": NaN throughout); h - I with a
+    small radius, whose floor shift fails and whose third trip factorizes
+    ("not_pd_recovers"); h with ``TR_STEP_FROZEN`` pinned as
+    ``solve/lm.py::lm_program`` pins them (unit curvature, zero gradient),
+    whose step there is exactly 0 ("frozen")."""
+    import torch
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(p, p)))
+    h = (q * np.geomspace(0.5, 50.0, p)) @ q.T
+    h = 0.5 * (h + h.T)
+    g = rng.normal(size=p)
+    newton = np.linalg.norm(np.linalg.solve(h, g))
+    d = 2.0 ** np.round(np.linspace(-10, 10, p))
+    h_ill = d[:, None] * h * d[None, :]
+    frz = np.zeros(p, bool)
+    frz[[f for f in TR_STEP_FROZEN if f < p]] = True
+    h_frz = np.where(frz[:, None] | frz[None, :], 0.0, h) + np.diag(
+        frz.astype(np.float64))
+    out = {"interior": (h, g, 10.0 * newton),
+           "boundary": (h, g, 0.1 * newton),
+           "ill_conditioned": (h_ill, g, 0.3 * np.linalg.norm(
+               np.linalg.solve(h_ill, g))),
+           "not_pd": (h - 100.0 * np.eye(p), g, 0.1 * newton),
+           "not_pd_recovers": (h - np.eye(p), g, 1e-4 * newton),
+           "frozen": (h_frz, np.where(frz, 0.0, g), 0.2 * newton)}
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a)[None], device=dev).to(dtype)
+    return {k: (t(hh), t(gg), t(r)) for k, (hh, gg, r) in out.items()}
+
+
+def tr_step_apart(got, want):
+    """(K5's step against chol_tr_step's: the largest difference over the
+    largest |entry|, on the entries finite in both; NaN in the same places;
+    the same boundary flags)."""
+    import torch
+    (s1, b1), (s0, b0) = got, want
+    fin = torch.isfinite(s0) & torch.isfinite(s1)
+    rel = 0.0
+    if fin.any():
+        rel = float((s1 - s0)[fin].abs().max()
+                    / s0[fin].abs().max().clamp(min=1e-300))
+    return (rel, bool(torch.equal(torch.isnan(s1), torch.isnan(s0))),
+            bool(torch.equal(b1, b0)))
+
+
+def tr_step_cases(dev, stream_system=None):
+    """K5 (``ops/trust_region.py::tr_step``) against ``chol_tr_step`` on the
+    card, ``TR_STEP_ITERS`` Newton trips: every system of
+    :func:`tr_step_systems` alone (and ``stream_system``, the stream's own,
+    where given) in float64 and float32, each within ``TR_STEP_TOL``, NaN
+    where chol_tr_step's step is NaN, the same boundary flag, the frozen
+    dims' step exactly 0; the four finite systems as one batch (N = 4),
+    each problem bitwise its own launch's; one launch captured into a CUDA
+    graph, replayed on other inputs copied into its buffers, bitwise the
+    eager launch's; then the times at P = 76 in float32 (each captured
+    ``ONLINE_KERNEL_REPS`` times into a CUDA graph, chol_tr_step 10 times)
+    of the interior and the boundary system and of the stream's. ->
+    {"cases", "failed", "max_rel_err" (float64), "max_rel_err_f32",
+    "batch_bitwise", "graph_bitwise", "ms"}."""
+    import torch
+    from smpltpu_torch.ops import LAUNCHES
+    from smpltpu_torch.ops.trust_region import tr_step
+    from smpltpu_torch.solve.lm import chol_tr_step
+
+    f32, f64 = torch.float32, torch.float64
+    it = TR_STEP_ITERS
+    out, failed, max_rel = {}, [], {"float32": 0.0, "float64": 0.0}
+    systems = {}
+    for dtype in (f32, f64):
+        dn = str(dtype).split(".")[-1]
+        sy = tr_step_systems(dtype, dev)
+        if stream_system is not None:
+            sy["stream"] = tuple(t.to(dtype) for t in stream_system)
+        systems[dtype] = sy
+        for case, (h, g, r) in sy.items():
+            got, want = tr_step(h, g, r, it), chol_tr_step(h, g, r, it)
+            rel, nan_same, flag_same = tr_step_apart(got, want)
+            row = out.setdefault(case, {})
+            row[dn] = {"rel_err": rel, "nan_same": nan_same,
+                       "boundary_same": flag_same,
+                       "boundary": bool(want[1][0]),
+                       "nan": bool(torch.isnan(want[0]).any())}
+            max_rel[dn] = max(max_rel[dn], rel)
+            if not (rel <= TR_STEP_TOL[dn] and nan_same and flag_same):
+                failed.append(f"{case} {dn}: {row[dn]} (tol "
+                              f"{TR_STEP_TOL[dn]})")
+            if case == "frozen" and got[0][0, TR_STEP_FROZEN].any():
+                failed.append(f"frozen {dn}: a frozen dim's step is not 0")
+    # what each system is for: a case that stops being one fails here
+    want64 = {c: row["float64"] for c, row in out.items()}
+    expect = {"interior": not want64["interior"]["boundary"],
+              "boundary": want64["boundary"]["boundary"],
+              "not_pd": want64["not_pd"]["nan"],
+              "not_pd_recovers": not want64["not_pd_recovers"]["nan"]}
+    if not all(expect.values()):
+        failed.append(f"a system is not the case it is named for: {expect}")
+
+    # N = 4, the finite systems mixed, each problem its own launch's
+    sy = systems[f64]
+    mix = ("interior", "boundary", "ill_conditioned", "frozen")
+    h4, g4, r4 = (torch.cat([sy[c][k] for c in mix]) for k in range(3))
+    s4, b4 = tr_step(h4, g4, r4, it)
+    batch_bitwise = all(
+        torch.equal(s4[i:i + 1], tr_step(*sy[c], it)[0])
+        for i, c in enumerate(mix))
+    rel4, nan4, flag4 = tr_step_apart((s4, b4), chol_tr_step(h4, g4, r4, it))
+    if not (batch_bitwise and rel4 <= TR_STEP_TOL["float64"] and nan4
+            and flag4):
+        failed.append(f"N = 4: bitwise {batch_bitwise}, {rel4} from "
+                      f"chol_tr_step, NaN {nan4}, flags {flag4}")
+
+    # one launch in a CUDA graph on static buffers, replayed on new inputs
+    h_s, g_s, r_s = (t.clone() for t in sy["boundary"])
+    tr_step(h_s, g_s, r_s, it)
+    torch.cuda.synchronize()
+    before = LAUNCHES["tr_step"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s_out, b_out = tr_step(h_s, g_s, r_s, it)
+    captured = LAUNCHES["tr_step"] - before
+    for k, t in enumerate(sy["ill_conditioned"]):
+        (h_s, g_s, r_s)[k].copy_(t)
+    graph.replay()
+    want_s, want_b = tr_step(*sy["ill_conditioned"], it)
+    torch.cuda.synchronize()
+    graph_bitwise = bool(torch.equal(s_out, want_s)
+                         and torch.equal(b_out, want_b) and captured == 1)
+    if not graph_bitwise:
+        failed.append(f"graph replay: not the eager launch's step, or "
+                      f"{captured} launches recorded")
+
+    sy = systems[f32]
+    ms = {}
+    for case in ("interior", "boundary", "stream"):
+        if case in sy:
+            h, g, r = sy[case]
+            ms[case] = graph_ms(lambda: tr_step(h, g, r, it),
+                                ONLINE_KERNEL_REPS)
+            ms[f"eager_{case}"] = graph_ms(lambda: chol_tr_step(h, g, r, it),
+                                           10)
+    torch.cuda.synchronize()
+    return {"cases": out, "failed": failed,
+            "max_rel_err": max_rel["float64"],
+            "max_rel_err_f32": max_rel["float32"],
+            "batch_bitwise": batch_bitwise, "graph_bitwise": graph_bitwise,
+            "ms": ms}
+
+
+def tr_step_phase(fit64, kp, dev, checks):
+    """Phase ``10 stream_tr_step``: :func:`tr_step_cases` with the stream's
+    own system (the pinned h and g of K4 in float64 at ``fit64``'s start,
+    on the feed's first frame with no previous frame, radius 1: the first
+    step of the feed's LM), every failure a failed check, and K5's bound
+    at P = 76 in float32: h, g and the radius read once, the step written
+    once, 4 trips of a factorization (P^3 / 3 multiply-adds) and two
+    solves (P^2 each). -> its result."""
+    import torch
+    from smpltpu_torch.solve import online as on
+
+    f64 = torch.float64
+    prob = on._online_problem(fit64.spec, fit64.cam, fit64.cfg,
+                              fit64.model.num_joints, None, device=dev,
+                              dtype=f64)
+    x = fit64.prev[None]
+    lin, _, _ = prob.kernel_of(fit64.shape, torch.as_tensor(
+        kp[:1], device=dev).to(f64), x, torch.zeros(1, device=dev, dtype=f64))
+    g, h = lin(x)
+    frz = prob.frozen
+    system = (h + torch.diag(frz.to(f64)),
+              torch.where(frz, torch.zeros_like(g), g),
+              torch.ones(1, device=dev, dtype=f64))
+    res = tr_step_cases(dev, system)
+    for f in res["failed"]:
+        checks(False, f"stream_tr_step: {f}")
+    p = TR_STEP_P
+    res["bound"] = bound(4 * (p * p + 2 * p + 2),
+                         2 * TR_STEP_ITERS * (p ** 3 / 3 + 2 * p * p))
+    phase("10 stream_tr_step", ok=not res["failed"], **res, tol=TR_STEP_TOL)
+    torch.cuda.synchronize()
+    return res
 
 
 def online_kernel_phase(dev, checks):
@@ -2422,6 +2633,7 @@ def stream_phases(w, shp, dev, checks):
     the first STREAM_FRAMES frames from the init pose, the shape ``shp``
     of phase 5's stage 1, OnlineConfig(**STREAM_CFG), f32.
 
+    ``stream_kernel`` (K4) and ``stream_tr_step`` (K5) first.
     ``stream_capture``: each solver call of the online trip (and the
     damped mode's ``solve_ex``) captured at batch 1 under sync-debug
     "error". ``stream_step``: ``OnlineFitter.step`` frame by frame (the
@@ -2430,19 +2642,20 @@ def stream_phases(w, shp, dev, checks):
     over a 1-trip and a STREAM_PROFILE_TRIPS-trip step), peak GiB, mean px.
     ``stream_f64``: the step loop in float64, mean px against the float32
     loop's. ``stream_scan``: ``OnlineFitter.replay`` over the same frames
-    on the trip graph (K4 in it), timed after a first run (the capture):
-    graph replays a frame, K4's launches by mode against the trips and
-    inits run, launches and syncs a frame, its distance relative to scale
-    from the float64 step loop (within STREAM_F32_APART_MAX) and from the
-    float32 one, and the same distances of the trip graph as it was before
-    K4. ``stream_pump``: the frames submitted one at a time after a
-    sacrificial frame: latency, K4's launches, the same distances.
+    on the trip graph (K4 and K5 in it), timed after a first run (the
+    capture): graph replays a frame, K4's launches by mode and K5's against
+    the trips and inits run, launches and syncs a frame, its distance
+    relative to scale from the float64 step loop (within
+    STREAM_F32_APART_MAX) and from the float32 one, and the same distances
+    of the trip graph as it was before K4. ``stream_pump``: the frames
+    submitted one at a time after a sacrificial frame: latency, K4's and
+    K5's launches, the same distances.
     ``stream_graph_f64``: the scan and the pump in float64, held to the
     float64 step loop within STREAM_AGREE_MAX, trip for trip.
     ``stream_hold``: every 10th of the first STREAM_HOLD_FRAMES frames
     emptied; in all three paths a held frame equals the frame before, bit
-    for bit, unsolved. -> K4's phase result and its launches in the
-    timed scan."""
+    for bit, unsolved. -> K4's phase result, its launches in the timed
+    scan (K5's with them) and K5's phase result."""
     import torch
     from smpltpu_torch.energy.params import init_frame_params
     from smpltpu_torch.ops import LAUNCHES
@@ -2481,17 +2694,21 @@ def stream_phases(w, shp, dev, checks):
     def k4_zero():
         for mode in K4_PER_TRIP:
             LAUNCHES[f"online_normal@{mode}"] = 0
+        LAUNCHES["tr_step"] = 0
 
     def k4_launches(trips, inits):
-        """K4's launches by mode since k4_zero(), beside what ``trips``
-        trips and ``inits`` inits launch."""
+        """K4's launches by mode and K5's since k4_zero(), beside what
+        ``trips`` trips and ``inits`` inits launch (K5: one a trip)."""
         got = {m: LAUNCHES[f"online_normal@{m}"] for m in K4_PER_TRIP}
         want = {m: K4_PER_TRIP[m] * trips + K4_PER_INIT[m] * inits
                 for m in K4_PER_TRIP}
+        got["tr_step"], want["tr_step"] = LAUNCHES["tr_step"], trips
         return dict(got, trips=trips, inits=inits, as_counted=got == want)
 
     # stream_kernel: K4 against the eager composition, and its times
     k4 = online_kernel_phase(dev, checks)
+    # stream_tr_step: K5 against chol_tr_step, and its times
+    k5 = tr_step_phase(fitter(f64), kp, dev, checks)
 
     # stream_capture
     cap = capture_checks(dev)
@@ -2575,7 +2792,7 @@ def stream_phases(w, shp, dev, checks):
     ok = bool(apart64 <= STREAM_F32_APART_MAX and np.isfinite(xs_scan).all()
               and out[3].all() and k4_scan["as_counted"])
     checks(ok, f"stream_scan: {apart64} of scale from the float64 step "
-               f"loop, K4 launches {k4_scan}")
+               f"loop, K4 and K5 launches {k4_scan}")
     phase("10 stream_scan", ok=ok, frames=n, first_run_s=first_s,
           wall_ms=scan_s * 1e3, ms_per_frame=scan_s * 1e3 / n,
           frames_per_s=n / scan_s,
@@ -2618,7 +2835,7 @@ def stream_phases(w, shp, dev, checks):
     ok = bool(apart_p64 <= STREAM_F32_APART_MAX
               and np.isfinite(xs_pump).all() and k4_pump["as_counted"])
     checks(ok, f"stream_pump: {apart_p64} of scale from the float64 step "
-               f"loop, K4 launches {k4_pump}")
+               f"loop, K4 and K5 launches {k4_pump}")
     phase("10 stream_pump", ok=ok, frames=n, first_round_trip_ms=first_ms,
           latency_ms=pct(lat_p), frames_per_s=1e3 / lat_p.mean(),
           k4_launches=k4_pump, max_rel_apart_from_f64_step=apart_p64,
@@ -2671,7 +2888,7 @@ def stream_phases(w, shp, dev, checks):
           held=held.tolist(), held_equal_previous=res,
           scan_rel_apart_from_step=rel_apart(xs_hs, xs_h),
           pump_rel_apart_from_step=rel_apart(xs_hp, xs_h))
-    return {"kernel": k4, "launches": k4_scan}
+    return {"kernel": k4, "launches": k4_scan, "tr_step": k5}
 
 
 def mesh_phases(w, st1, st1_exact, st2, single_ref, dev, checks):
@@ -4032,6 +4249,20 @@ def main(argv):
          "bound_ms": k4["kernel"]["bound"][mode][0],
          "bound_by": k4["kernel"]["bound"][mode][1], "library_ms": None}
         for mode in K4_PER_TRIP
+    ] + [
+        # K5 on the stream's trip graph, its launches those of phase 10's
+        # timed scan (one a trip); its time on the stream's own system,
+        # plain_ms chol_tr_step's, each captured into a CUDA graph
+        {"name": "tr_step", "route": "cuda",
+         "source": "smpltpu_torch/csrc/tr_step.cu",
+         "replaces": "smpltpu/solve/lm.py:230",
+         "launches": k4["launches"]["tr_step"],
+         "max_rel_err": k4["tr_step"]["max_rel_err"],
+         "max_rel_err_f32": k4["tr_step"]["max_rel_err_f32"],
+         "ms": k4["tr_step"]["ms"]["stream"],
+         "plain_ms": k4["tr_step"]["ms"]["eager_stream"],
+         "bound_ms": k4["tr_step"]["bound"][0],
+         "bound_by": k4["tr_step"]["bound"][1], "library_ms": None}
     ]}), flush=True)
     return finish(checks, kind)
 

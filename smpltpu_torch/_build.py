@@ -21,7 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
-SOURCES = ("arrow_pcg.cu", "lbs.cu", "raster.cu", "online_normal.cu")
+SOURCES = ("arrow_pcg.cu", "lbs.cu", "raster.cu", "online_normal.cu",
+           "tr_step.cu")
 BUILD_DIR = _PKG.parent / "build" / "smpltpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +40,8 @@ _SIGNATURES = {
                                  + [ctypes.c_float] * 4 + [_I] * 4 + [_P] * 8),
     "smpltpu_online_normal_f32": (_I, [_P] * 10 + [_I] * 6 + [_P]),
     "smpltpu_online_normal_f64": (_I, [_P] * 10 + [_I] * 6 + [_P]),
+    "smpltpu_tr_step_f32": (_I, [_P] * 5 + [_I] * 3 + [_P]),
+    "smpltpu_tr_step_f64": (_I, [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 _lib = None

@@ -310,7 +310,8 @@ def lm_program(residual_fn: ResidualFn, cfg: LMConfig,
                upper: Optional[torch.Tensor] = None,
                frozen: Optional[torch.Tensor] = None,
                linearize: Optional[Callable] = None,
-               cost_fn: Optional[Callable] = None):
+               cost_fn: Optional[Callable] = None,
+               tr_step: Optional[Callable] = None):
     """(init, step) of the LM loop: ``init(x0 (N, P)) -> LMState`` and
     ``step(state) -> LMState``, one trip with no host read.
 
@@ -321,7 +322,9 @@ def lm_program(residual_fn: ResidualFn, cfg: LMConfig,
     (+-inf for free dims), frozen (P,) bool: dims held constant.
     ``linearize`` and ``cost_fn`` compute the same problem another way
     (their contract: :func:`plain_linearization`, which each one left None
-    comes from)."""
+    comes from); ``tr_step``, :func:`chol_tr_step`'s contract, computes the
+    step of ``exact_tr`` with ``tr_solver="chol"`` another way (None:
+    :func:`chol_tr_step`)."""
     if cfg.tr_solver not in ("chol", "eigh", "dogleg"):
         raise ValueError(f"LMConfig.tr_solver must be 'eigh', 'chol' or "
                          f"'dogleg', got {cfg.tr_solver!r}")
@@ -350,8 +353,8 @@ def lm_program(residual_fn: ResidualFn, cfg: LMConfig,
             g = torch.where(free, g, torch.zeros_like(g))
             h_pin = h + torch.diag(frz_f)
             if cfg.tr_solver == "chol":
-                delta, boundary = chol_tr_step(h_pin, g, radius,
-                                               cfg.tr_newton_iters)
+                delta, boundary = (tr_step or chol_tr_step)(
+                    h_pin, g, radius, cfg.tr_newton_iters)
             elif cfg.tr_solver == "dogleg":
                 delta, boundary = dogleg_tr_step(h_pin, g, radius)
             else:

@@ -21,9 +21,12 @@ frames. What changes on the card:
   * in that graph the trip's linearization (FK, keypoint Jacobian, Huber
     correction, g and H) and its trial cost are two launches of one
     hand-written kernel (``ops/online.py``, K4) in place of the eager
-    composition's ~400 nodes; the trust-region step and the acceptance
-    stay as they are. The eager step loop (:func:`build_online_step`)
-    keeps the eager composition and is what the graph is held to;
+    composition's ~400 nodes, and its trust-region step (four shifted
+    Cholesky factorizations, their solves, the secular update) is one
+    launch of another (``ops/trust_region.py``, K5) in place of ~250; the
+    acceptance stays as it is. The eager step loop
+    (:func:`build_online_step`) keeps the eager composition and is what
+    the graph is held to;
   * the causal replay (:func:`build_online_scan`) drives that graph frame
     after frame; the frames to hold (no detection) are picked on the host
     from one copy of the validity flags;
@@ -75,6 +78,7 @@ from smpltpu_torch.energy.temporal import temporal_mask
 from smpltpu_torch.models.smpl import SMPLModel
 from smpltpu_torch.ops import LAUNCHES
 from smpltpu_torch.ops.online import online_normal, online_tables
+from smpltpu_torch.ops.trust_region import tr_step
 from smpltpu_torch.solve.lm import LMConfig, LMState, _mv, lm_program, lm_solve
 from smpltpu_torch.utils.obs import span
 
@@ -106,8 +110,8 @@ class _OnlineProblem(NamedTuple):
     lower: torch.Tensor
     upper: torch.Tensor
     frozen: torch.Tensor
-    # (shape, kp, prev, has_prev) -> (linearize, cost_fn) through K4; None
-    # off CUDA
+    # (shape, kp, prev, has_prev) -> (linearize, cost_fn, tr_step) through
+    # K4 and K5; None off CUDA
     kernel_of: Optional[Callable]
 
 
@@ -128,7 +132,8 @@ def _online_problem(spec: SkeletonSpec, cam: Camera, cfg: OnlineConfig,
     ``lm_program`` linearization and cost through K4
     (``ops/online.py::online_normal``), the GMM rows, where there is a
     GMM, added to its g, H and cost from their eager residual and
-    Jacobian."""
+    Jacobian, and its trust-region step through K5
+    (``ops/trust_region.py::tr_step``)."""
     require_smpl_spec(spec, "the online fit (K4, SMPL's held joints)")
     device = _device(device)
     lay = frame_param_layout(n_joints)
@@ -203,7 +208,8 @@ def _online_problem(spec: SkeletonSpec, cam: Camera, cfg: OnlineConfig,
         free = (~frozen_t).to(dtype)
 
         def kernel_of(shape, kp, prev, has_prev):
-            """(linearize, cost_fn) over these inputs, read at every call."""
+            """(linearize, cost_fn, tr_step) over these inputs, read at
+            every call."""
             def gmm_rows(x, with_jacobian):
                 r, j = gmm_pose_prior_residual_and_jacobian(
                     x[..., aa0:aa1], gmm, want_jacobian=with_jacobian)
@@ -226,7 +232,7 @@ def _online_problem(spec: SkeletonSpec, cam: Camera, cfg: OnlineConfig,
                     r, _ = gmm_rows(x, False)
                     c = c + 0.5 * torch.sum(r * r, dim=-1)
                 return c
-            return linearize, cost_fn
+            return linearize, cost_fn, tr_step
 
     return _OnlineProblem(
         residual_of=residual_of,
@@ -274,8 +280,8 @@ class OnlineGraph:
     (a second graph never replays into this one's buffers), after two
     warm-up trips on a side stream; it then zeroes every buffer, so the
     warm-up leaks into no result. A capture that fails raises. There the
-    trip's linearization and trial cost are K4's (``kernel_of`` of the
-    problem); on the CPU the loop runs ``lm_solve``'s own functions. The
+    trip's linearization and trial cost are K4's and its trust-region
+    step K5's (``kernel_of`` of the problem); on the CPU the loop runs ``lm_solve``'s own functions. The
     graphs read the constants that the eager functions hold, so this
     object keeps those functions for as long as it lives."""
 

@@ -306,6 +306,35 @@ def test_seam_computes_what_lm_solve_computed_before_it(rig, case):
     assert int(state.iters_run[0]) > 2
 
 
+@pytest.mark.parametrize("case", sorted(SEAM_CASES))
+@pytest.mark.parametrize("step_fn", ["chol_tr_step", "tr_step"])
+def test_seam_takes_the_trust_region_step(rig, case, step_fn):
+    """``lm_program`` given ``chol_tr_step`` as its trust-region step, or
+    K5's wrapper (``chol_tr_step`` itself on the CPU), with and without the
+    plain linearization: the recorded pre-seam state, bit for bit, as the
+    default computes it."""
+    from smpltpu_torch.ops.trust_region import tr_step
+    from smpltpu_torch.solve.lm import chol_tr_step, lm_program, plain_linearization
+
+    with np.load(SEAM_REF) as ref:
+        want = {k: ref[k] for k in ref.files if k.startswith(case + ".")}
+    cfg, prob = _problem(rig, case, gmm=case == "gmm", **SEAM_CASES[case])
+    prev = torch.as_tensor(rig["gt"][1:2] + 0.03)
+    fn = prob.residual_of(torch.as_tensor(rig["shape"]), torch.as_tensor(rig["kp"][2:3]),
+                          prev, torch.ones(1, dtype=F64))
+    fn_step = {"chol_tr_step": chol_tr_step, "tr_step": tr_step}[step_fn]
+    for lin in ((None, None), plain_linearization(fn, cfg.huber_delta, prob.frozen)):
+        init, step = lm_program(fn, prob.lm_cfg, prob.lower, prob.upper, prob.frozen,
+                                *lin, tr_step=fn_step)
+        state = init(prev)
+        while (not bool(state.converged.all())
+               and int(state.iters_run[0]) < cfg.max_iters):
+            state = step(state)
+        for name in LMState._fields:
+            np.testing.assert_array_equal(getattr(state, name).numpy(),
+                                          want[f"{case}.{name}"])
+
+
 @pytest.mark.card
 def test_kernel_on_the_card(card):
     """K4 within ``chip_smoke.py``'s tolerances of the eager float32 and
