@@ -41,13 +41,12 @@ from typing import NamedTuple
 
 import torch
 
-from smpltpu_torch.constants import SCALE_MAX, SCALE_MIN
-from smpltpu_torch.energy.params import frame_param_layout
 from smpltpu_torch.energy.reproj import (
     Camera,
     SkeletonSpec,
     keypoint_residuals,
     require_smpl_spec,
+    spec_layout,
 )
 from smpltpu_torch.energy.temporal import temporal_mask
 from smpltpu_torch.parallel.mesh import FramesMesh
@@ -57,6 +56,9 @@ from smpltpu_torch.solve.multi_frame import (
     MultiFrameResult,
     build_chunked_window_fit,
     corrected_frame_assembly,
+    project_scale,
+    start_state,
+    trust_region_trip,
 )
 from smpltpu_torch.solve.single_frame import fit_in_chunks
 
@@ -110,7 +112,7 @@ class _Sharded:
     def __init__(self, mesh, spec, cam, cfg, n_shapes, dtype):
         require_smpl_spec(spec, "the sharded solvers")
         n_joints = len(spec.parents)
-        lay = frame_param_layout(n_joints)
+        lay = spec_layout(spec)
         dev = mesh.device
         self.mesh, self.spec, self.cam, self.cfg = mesh, spec, cam, cfg
         self.dtype = dtype
@@ -254,12 +256,6 @@ class _Sharded:
                 c = body(c)[0]
         return c[:4]
 
-    def project_scale(self, params_new, params):
-        """Scale pinned under freeze_scale, else clamped to its bounds."""
-        s = (params[:, :1] if self.cfg.freeze_scale
-             else torch.clamp(params_new[:, :1], SCALE_MIN, SCALE_MAX))
-        return torch.cat([s, params_new[:, 1:]], dim=1)
-
 
 def build_sharded_gn_step(mesh: FramesMesh, spec: SkeletonSpec, cam: Camera,
                           cfg: MultiFrameConfig, n_shapes: int,
@@ -287,7 +283,7 @@ def build_sharded_gn_step(mesh: FramesMesh, spec: SkeletonSpec, cam: Camera,
         x_p, x_w, r_p, r_w = sh.pcg(h_damped, c_damped, b_pw, lam2,
                                     lam2_prev, g_p, g_w, cg_iters)
         res_norm = torch.sqrt(sh.pdot(r_p, r_w, r_p, r_w))
-        new_p = sh.project_scale(p_loc + x_p, p_loc)
+        new_p = project_scale(p_loc + x_p, p_loc, cfg.freeze_scale)
         return GNStepResult(mesh.all_gather(new_p), w + x_w, res_norm)
 
     return step
@@ -305,9 +301,9 @@ def build_sharded_lm_fitter(mesh: FramesMesh, spec: SkeletonSpec,
     """The multi-rank counterpart of ``build_multi_fitter``: the whole
     trust-region LM of the shared-shape multi-frame problem with the frames
     sharded. Each trip: the local assembly, the shape pieces all-reduced,
-    block-Jacobi PCG on the damped system with the halo rows, the dogleg
-    or LM step, accept/reject and the radius schedule of
-    ``solve/multi_frame.py`` on replicated scalars.
+    then ``solve/multi_frame.py::trust_region_trip`` on 0-dim control
+    fields, its solve block-Jacobi PCG on the damped system with the halo
+    rows, its inner products and trial cost all-reduced.
 
     Returns fit(params0 (F, P), shape0 (nS,), kp (F, K, 4), r0 (F, 3, 3),
     frame_valid (F,) | None) -> MultiFrameResult with unbatched fields. F
@@ -347,120 +343,29 @@ def build_sharded_lm_fitter(mesh: FramesMesh, spec: SkeletonSpec,
             return 0.5 * (total + sh.bs2 * torch.sum(w * w))
 
         def step(state):
-            params, w, radius, dec_f, cost, converged, n_acc, iters = state
-            h_pp, b_pw, c_ww, g_p, g_w = sh.assembly(params, w, kp, r0, lam2,
-                                                     lam2_prev)
-            diag_p = torch.clamp(torch.diagonal(h_pp, dim1=-2, dim2=-1),
-                                 cfg.diag_min, cfg.diag_max)
-            diag_w = torch.clamp(torch.diagonal(c_ww), cfg.diag_min,
-                                 cfg.diag_max)
-            if cfg.dogleg:
-                # lightly regularized GN system; the dogleg below reaches
-                # the trust boundary
-                h_damped = h_pp + torch.diag_embed(1e-9 * diag_p + cfg.diag_eps)
-                c_damped = c_ww + torch.diag(1e-9 * diag_w + cfg.diag_eps)
-            else:
-                h_damped = h_pp + torch.diag_embed(diag_p / radius
-                                                   + cfg.diag_eps)
-                c_damped = c_ww + torch.diag(diag_w / radius + cfg.diag_eps)
-            x_p, x_w, _, _ = sh.pcg(h_damped, c_damped, b_pw, lam2, lam2_prev,
-                                    g_p, g_w, cg_iters, cfg.cg_rtol)
+            h_pp, b_pw, c_ww, g_p, g_w = sh.assembly(
+                state.params, state.shape, kp, r0, lam2, lam2_prev)
 
-            def hmul(v_p, v_w):   # the undamped Hessian
+            def solve(d_blocks, c_reg, g_p, g_w):
+                return sh.pcg(d_blocks, c_reg, b_pw, lam2, lam2_prev, g_p,
+                              g_w, cg_iters, cfg.cg_rtol)[:2]
+
+            def hmul(v_p, v_w):
                 return sh.matvec(h_pp, c_ww, b_pw, lam2, lam2_prev, v_p, v_w)
 
-            if cfg.dogleg:
-                # Powell dogleg: the GN point (the PCG solution) and the
-                # Cauchy point, interpolated to the trust boundary; every
-                # norm and dot all-reduced, so every rank picks one case
-                n_gn = torch.sqrt(sh.pdot(x_p, x_w, x_p, x_w))
-                hg_p, hg_w = hmul(g_p, g_w)
-                gg = sh.pdot(g_p, g_w, g_p, g_w)
-                ghg = torch.clamp(sh.pdot(g_p, g_w, hg_p, hg_w), min=1e-30)
-                alpha_c = gg / ghg
-                sd_p, sd_w = -alpha_c * g_p, -alpha_c * g_w
-                n_sd = alpha_c * torch.sqrt(gg)
-                df_p, df_w = x_p - sd_p, x_w - sd_w
-                a = torch.clamp(sh.pdot(df_p, df_w, df_p, df_w), min=1e-30)
-                b = 2.0 * sh.pdot(sd_p, sd_w, df_p, df_w)
-                c = n_sd * n_sd - radius * radius
-                disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
-                tau = torch.clamp((-b + torch.sqrt(disc)) / (2.0 * a), 0.0, 1.0)
-                use_gn = n_gn <= radius
-                use_sd = ~use_gn & (n_sd >= radius)
-                sd_scale = radius / torch.clamp(n_sd, min=1e-30)
-
-                def pick(gn, sd, df):
-                    return torch.where(use_gn, gn, torch.where(
-                        use_sd, sd_scale * sd, sd + tau * df))
-                x_p, x_w = pick(x_p, sd_p, df_p), pick(x_w, sd_w, df_w)
-                boundary = ~use_gn
-
-            params_new = sh.project_scale(params + x_p, params)
-            dp = params_new - params
-            w_new = w + x_w
-            cost_new = cost_fn(params_new, w_new)
-
-            # model decrease on the undamped quadratic
-            hd, hd_w = hmul(dp, x_w)
-            gd = sh.pdot(g_p, g_w, dp, x_w)
-            dhd = sh.pdot(hd, hd_w, dp, x_w)
-            model_decrease = -gd - 0.5 * dhd
-            rho = (cost - cost_new) / torch.clamp(model_decrease, min=1e-30)
-            valid = torch.isfinite(cost_new) & (model_decrease > 0)
-
-            if cfg.dogleg:
-                accept = valid & (cost - cost_new > 0)
-                step_norm = torch.sqrt(sh.pdot(dp, x_w, dp, x_w))
-                radius_new = torch.where(
-                    rho < 0.25, 0.25 * step_norm,
-                    torch.where((rho > 0.75) & boundary, 2.0 * radius, radius))
-                radius_new = torch.clamp(radius_new, 1e-12, 1e10)
-                dec_new = dec_f
-            else:
-                accept = valid & (rho > cfg.min_rel_decrease)
-                grow = radius / torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                            min=1.0 / 3.0)
-                radius_new = torch.clamp(
-                    torch.where(accept, grow, radius / dec_f), 1e-32, 1e16)
-                dec_new = torch.where(accept, torch.full_like(dec_f, 2.0),
-                                      dec_f * 2.0)
-
-            f_conv = torch.abs(cost - cost_new) <= cfg.ftol * cost
-            converged_new = converged | (accept & f_conv)
-            if cfg.dogleg:
-                # radius collapse to parameter tolerance (multi_frame.py)
-                x_norm = torch.sqrt(sh.pdot(params, w, params, w))
-                converged_new = converged_new | (
-                    radius_new <= 1e-8 * (x_norm + 1e-8))
-            do_move = accept & ~converged
-            return (torch.where(do_move, params_new, params),
-                    torch.where(do_move, w_new, w),
-                    torch.where(converged, radius, radius_new),
-                    torch.where(converged, dec_f, dec_new),
-                    torch.where(do_move, cost_new, cost),
-                    converged_new,
-                    n_acc + do_move.to(torch.int32),
-                    iters + (~converged).to(torch.int32))
+            return trust_region_trip(
+                cfg, state, h_pp, c_ww, g_p, g_w, solve=solve, hmul=hmul,
+                dot=sh.pdot, trial=lambda p, w: (cost_fn(p, w), None))[0]
 
         params = mesh.shard(params0)
-        n_valid = torch.clamp(torch.sum(frame_valid), min=1.0)
-        radius0 = (cfg.dogleg_init_radius * torch.sqrt(n_valid) if cfg.dogleg
-                   else torch.full((), cfg.init_radius, dtype=dtype,
-                                   device=mesh.device))
-        zero_i = torch.zeros((), dtype=torch.int32, device=mesh.device)
-        state = (params, w0, radius0,
-                 torch.full((), 2.0, dtype=dtype, device=mesh.device),
-                 cost_fn(params, w0),
-                 torch.zeros((), dtype=torch.bool, device=mesh.device),
-                 zero_i, zero_i)
+        state = start_state(cfg, params, w0, cost_fn(params, w0), frame_valid)
         costs = []
         for _ in range(cfg.max_iters):
             state = step(state)
-            costs.append(state[4])
+            costs.append(state.cost)
         hist = (torch.stack(costs) if costs
-                else state[4].new_zeros((0,)))
-        return MultiFrameResult(mesh.all_gather(state[0]), *state[1:],
+                else state.cost.new_zeros((0,)))
+        return MultiFrameResult(mesh.all_gather(state.params), *state[1:],
                                 cost_history=hist)
 
     return fit

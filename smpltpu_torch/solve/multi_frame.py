@@ -30,6 +30,9 @@ solvers, ``cfg.linear``:
     the (P, P) blocks of the fit's first linearization and its nS x nS
     shape block inverted once per fit (K1 stays Jacobi-only).
 
+The trip itself, :func:`trust_region_trip`, is shared with the
+frame-sharded fitter of :mod:`smpltpu_torch.parallel.sharded`.
+
 The PCG options run the same recursion. ``cfg.jacobian`` picks how the
 normal equations are assembled (:func:`corrected_frame_assembly`): the
 closed-form Jacobian (``"analytic"``, the default) or forward-mode
@@ -101,6 +104,9 @@ class MultiFrameConfig(NamedTuple):
 
 
 class MultiFrameState(NamedTuple):
+    """The LM's state; in the frame-sharded fitter the control fields
+    (radius to iters_run) are 0-dim and params is the rank's frames."""
+
     params: torch.Tensor            # (W, F, P)
     shape: torch.Tensor             # (W, nS)
     radius: torch.Tensor            # (W,)
@@ -242,6 +248,166 @@ def arrow_tridiag(d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w,
     return -y - torch.einsum("wfps,ws->wfp", cap_y, dw), dw
 
 
+def _window_pair_dot(a_p, a_w, b_p, b_w):
+    """Per-window <(a_p, a_w), (b_p, b_w)>."""
+    return window_dot(a_p, b_p) + window_dot(a_w, b_w)
+
+
+def project_scale(params_new, params, freeze_scale: bool):
+    """The scale column after a step: ``params``'s under freeze_scale,
+    else ``params_new``'s clamped to its bounds (a backstop)."""
+    s = (params[..., :1] if freeze_scale
+         else torch.clamp(params_new[..., :1], SCALE_MIN, SCALE_MAX))
+    return torch.cat([s, params_new[..., 1:]], -1)
+
+
+def start_state(cfg: MultiFrameConfig, params, shape, cost,
+                frame_valid) -> MultiFrameState:
+    """The LM's state before its first trip, control fields of
+    ``frame_valid``'s leading shape ((W,), or () for the sharded fitter's
+    one problem). The dogleg radius scales with the VALID frame count, so
+    padded and unpadded solves of the same real frames follow one
+    trajectory."""
+    lead, dev = frame_valid.shape[:-1], cost.device
+    if cfg.dogleg:
+        n_valid = torch.clamp(torch.sum(frame_valid, dim=-1), min=1.0)
+        radius = cfg.dogleg_init_radius * torch.sqrt(n_valid)
+    else:
+        radius = torch.full(lead, cfg.init_radius, dtype=cost.dtype,
+                            device=dev)
+    zeros_i = torch.zeros(lead, dtype=torch.int32, device=dev)
+    return MultiFrameState(
+        params=params, shape=shape, radius=radius,
+        decrease_factor=torch.full(lead, 2.0, dtype=cost.dtype, device=dev),
+        cost=cost, converged=torch.zeros(lead, dtype=torch.bool, device=dev),
+        n_accepted=zeros_i, iters_run=zeros_i)
+
+
+def trust_region_trip(cfg: MultiFrameConfig, state: MultiFrameState,
+                      h_pp, c_ww, g_p, g_w, *, solve, hmul, dot, trial,
+                      asm=None):
+    """One trust-region iteration of the multi-frame LM from the assembly
+    at ``state.params`` (pose blocks h_pp, shape block c_ww, gradient g_p,
+    g_w), for ``build_multi_fitter`` (control fields (W,)) and the
+    frame-sharded ``build_sharded_lm_fitter`` (0-dim, every reduction
+    all-reduced, so every rank takes the same branch). What they do
+    differently comes in as callables: ``solve(d_blocks, c_reg, g_p, g_w)
+    -> (dp, dw)`` on the diagonally damped system, ``hmul(v_p, v_w)`` the
+    undamped Hessian's product, ``dot(a_p, a_w, b_p, b_w)`` one inner
+    product a problem, ``trial(params, w) -> (cost, assembly or None)``.
+    Returns (new state, the trial's assembly where the step moved and
+    ``asm``'s elsewhere, or None)."""
+    params, w = state.params, state.shape
+    diag_p = torch.clamp(torch.diagonal(h_pp, dim1=-2, dim2=-1),
+                         cfg.diag_min, cfg.diag_max)
+    diag_w = torch.clamp(torch.diagonal(c_ww, dim1=-2, dim2=-1),
+                         cfg.diag_min, cfg.diag_max)
+    radius = state.radius
+
+    if cfg.dogleg:
+        # Gauss-Newton point (lightly regularized) + Cauchy point,
+        # dogleg-interpolated to the trust boundary
+        d_blocks = h_pp + torch.diag_embed(1e-9 * diag_p + cfg.diag_eps)
+        c_reg = c_ww + torch.diag_embed(1e-9 * diag_w + cfg.diag_eps)
+        dp_gn, dw_gn = solve(d_blocks, c_reg, g_p, g_w)
+        n_gn = torch.sqrt(dot(dp_gn, dw_gn, dp_gn, dw_gn))
+
+        hg_p, hg_w = hmul(g_p, g_w)
+        gg = dot(g_p, g_w, g_p, g_w)
+        ghg = torch.clamp(dot(g_p, g_w, hg_p, hg_w), min=1e-30)
+        alpha = gg / ghg
+        sd_p = -_per_window(alpha, g_p) * g_p
+        sd_w = -_per_window(alpha, g_w) * g_w
+        n_sd = torch.sqrt(alpha * alpha * gg)
+
+        # case C tau: ||sd + tau (gn - sd)||^2 = radius^2
+        df_p, df_w = dp_gn - sd_p, dw_gn - sd_w
+        a = torch.clamp(dot(df_p, df_w, df_p, df_w), min=1e-30)
+        b = 2.0 * dot(sd_p, sd_w, df_p, df_w)
+        c = n_sd * n_sd - radius * radius
+        disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
+        tau = torch.clamp((-b + torch.sqrt(disc)) / (2.0 * a), 0.0, 1.0)
+
+        use_gn = n_gn <= radius
+        use_sd = ~use_gn & (n_sd >= radius)
+        sd_scale = radius / torch.clamp(n_sd, min=1e-30)
+
+        def pick(gn, sd, df):
+            return torch.where(
+                _per_window(use_gn, gn), gn,
+                torch.where(_per_window(use_sd, sd),
+                            _per_window(sd_scale, sd) * sd,
+                            sd + _per_window(tau, df) * df))
+        dp = pick(dp_gn, sd_p, df_p)
+        dw = pick(dw_gn, sd_w, df_w)
+        boundary = ~use_gn
+    else:
+        # ceres-style LM damping on every diagonal
+        d_blocks = h_pp + torch.diag_embed(
+            diag_p / _per_window(radius, diag_p) + cfg.diag_eps)
+        c_reg = c_ww + torch.diag_embed(diag_w / _per_window(radius, diag_w)
+                                        + cfg.diag_eps)
+        dp, dw = solve(d_blocks, c_reg, g_p, g_w)
+
+    params_new = project_scale(params + dp, params, cfg.freeze_scale)
+    dp = params_new - params  # actual step after projection
+    w_new = w + dw
+    cost_new, asm_new = trial(params_new, w_new)
+
+    # model decrease from the undamped quadratic
+    hd, hd_w = hmul(dp, dw)
+    gd = dot(g_p, g_w, dp, dw)
+    dhd = dot(hd, hd_w, dp, dw)
+    model_decrease = -gd - 0.5 * dhd
+    rho = (state.cost - cost_new) / torch.clamp(model_decrease, min=1e-30)
+    valid = torch.isfinite(cost_new) & (model_decrease > 0)
+
+    if cfg.dogleg:
+        accept = valid & (state.cost - cost_new > 0)
+        step_norm = torch.sqrt(dot(dp, dw, dp, dw))
+        new_radius = torch.where(
+            rho < 0.25, 0.25 * step_norm,
+            torch.where((rho > 0.75) & boundary, 2.0 * radius, radius))
+        new_radius = torch.clamp(new_radius, 1e-12, 1e10)
+        decrease_factor = state.decrease_factor
+    else:
+        accept = valid & (rho > cfg.min_rel_decrease)
+        grow = radius / torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
+                                    min=1.0 / 3.0)
+        shrink = radius / state.decrease_factor
+        new_radius = torch.clamp(torch.where(accept, grow, shrink),
+                                 1e-32, 1e16)
+        decrease_factor = torch.where(
+            accept, torch.full_like(radius, 2.0),
+            state.decrease_factor * 2.0)
+
+    f_conv = torch.abs(state.cost - cost_new) <= cfg.ftol * state.cost
+    converged = state.converged | (accept & f_conv)
+    if cfg.dogleg:
+        # accept-any-decrease rejects every trial AT an optimum: also
+        # converge when the radius collapses to parameter tolerance
+        x_norm = torch.sqrt(dot(params, w, params, w))
+        converged = converged | (new_radius <= 1e-8 * (x_norm + 1e-8))
+    do_move = accept & ~state.converged
+    frozen = state.converged
+
+    new_state = MultiFrameState(
+        params=torch.where(_per_window(do_move, params), params_new, params),
+        shape=torch.where(_per_window(do_move, w), w_new, w),
+        radius=torch.where(frozen, radius, new_radius),
+        decrease_factor=torch.where(frozen, state.decrease_factor,
+                                    decrease_factor),
+        cost=torch.where(do_move, cost_new, state.cost),
+        converged=converged,
+        n_accepted=state.n_accepted + do_move.to(torch.int32),
+        iters_run=state.iters_run + (~frozen).to(torch.int32),
+    )
+    if asm_new is not None:
+        asm_new = tuple(torch.where(_per_window(do_move, old), new, old)
+                        for old, new in zip(asm, asm_new))
+    return new_state, asm_new
+
+
 def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
                        n_shapes: int, *, device, dtype):
     """Return fit(params0 (W, F, P), shape0 (W, nS) or (nS,), kp
@@ -344,151 +510,37 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
                 torch.linalg.inv_ex(c_ww + torch.diag_embed(
                     1e-9 * dg_w + cfg.diag_eps), check_errors=False)[0])
 
-    def arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w, prec):
-        args = (d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w)
-        if cfg.linear in ("tridiag", "cr"):
-            return arrow_tridiag(*args, linear=cfg.linear)
-        if cfg.linear in ("pcg", "pcg_block"):
-            return cg_ops.arrow_pcg_torch(*args, iters=cfg.cg_iters,
-                                          rtol=cfg.cg_rtol, prec=prec)
-        # looked up on each call, so a caller may wrap the kernel entry
-        return cg_ops.arrow_pcg(*(a.contiguous() for a in args),
-                                iters=cfg.cg_iters, rtol=cfg.cg_rtol)
-
-    def step(state: MultiFrameState, kp, r0, pair_w, asm, prec):
-        """One trust-region iteration from the assembly ``asm`` at
-        state.params (``prec``: pcg_block's preconditioner, else None).
-        Returns (new state, assembly at the new state or None, per-window
-        cost)."""
-        params, w = state.params, state.shape
+    def step(state, kp, r0, pair_w, asm, prec):
+        """One trip from the assembly ``asm`` at state.params (``prec``:
+        pcg_block's preconditioner, else None) -> (new state, assembly at
+        the new state or None)."""
         h_pp, off_scale, b_pw, c_ww, g_p, g_w = asm
 
+        def solve(d_blocks, c_reg, g_p, g_w):
+            args = (d_blocks, off_scale, tmask, b_pw, c_reg, g_p, g_w)
+            if cfg.linear in ("tridiag", "cr"):
+                return arrow_tridiag(*args, linear=cfg.linear)
+            if cfg.linear in ("pcg", "pcg_block"):
+                return cg_ops.arrow_pcg_torch(*args, iters=cfg.cg_iters,
+                                              rtol=cfg.cg_rtol, prec=prec)
+            # looked up on each call, so a caller may wrap the kernel entry
+            return cg_ops.arrow_pcg(*(a.contiguous() for a in args),
+                                    iters=cfg.cg_iters, rtol=cfg.cg_rtol)
+
         def hmul(v_p, v_w):
-            """Undamped Hessian application."""
             return cg_ops.arrow_matvec(h_pp, off_scale, tmask, b_pw, c_ww,
                                        v_p, v_w)
 
-        diag_p = torch.clamp(torch.diagonal(h_pp, dim1=-2, dim2=-1),
-                             cfg.diag_min, cfg.diag_max)
-        diag_w = torch.clamp(torch.diagonal(c_ww, dim1=-2, dim2=-1),
-                             cfg.diag_min, cfg.diag_max)
-        radius = state.radius
-
-        if cfg.dogleg:
-            # Gauss-Newton point (lightly regularized) + Cauchy point,
-            # dogleg-interpolated to the trust boundary
-            d_blocks = h_pp + torch.diag_embed(1e-9 * diag_p + cfg.diag_eps)
-            c_reg = c_ww + torch.diag_embed(1e-9 * diag_w + cfg.diag_eps)
-            dp_gn, dw_gn = arrow_solve(d_blocks, off_scale, b_pw, c_reg,
-                                       g_p, g_w, prec)
-            n_gn = torch.sqrt(window_dot(dp_gn, dp_gn) + window_dot(dw_gn, dw_gn))
-
-            hg_p, hg_w = hmul(g_p, g_w)
-            gg = window_dot(g_p, g_p) + window_dot(g_w, g_w)
-            ghg = torch.clamp(window_dot(g_p, hg_p) + window_dot(g_w, hg_w), min=1e-30)
-            alpha = gg / ghg
-            sd_p = -_per_window(alpha, g_p) * g_p
-            sd_w = -_per_window(alpha, g_w) * g_w
-            n_sd = torch.sqrt(alpha * alpha * gg)
-
-            # case C tau: ||sd + tau (gn - sd)||^2 = radius^2
-            df_p, df_w = dp_gn - sd_p, dw_gn - sd_w
-            a = torch.clamp(window_dot(df_p, df_p) + window_dot(df_w, df_w), min=1e-30)
-            b = 2.0 * (window_dot(sd_p, df_p) + window_dot(sd_w, df_w))
-            c = n_sd * n_sd - radius * radius
-            disc = torch.clamp(b * b - 4.0 * a * c, min=0.0)
-            tau = torch.clamp((-b + torch.sqrt(disc)) / (2.0 * a), 0.0, 1.0)
-
-            use_gn = n_gn <= radius
-            use_sd = ~use_gn & (n_sd >= radius)
-            sd_scale = radius / torch.clamp(n_sd, min=1e-30)
-
-            def pick(gn, sd, df):
-                return torch.where(
-                    _per_window(use_gn, gn), gn,
-                    torch.where(_per_window(use_sd, sd),
-                                _per_window(sd_scale, sd) * sd,
-                                sd + _per_window(tau, df) * df))
-            dp = pick(dp_gn, sd_p, df_p)
-            dw = pick(dw_gn, sd_w, df_w)
-            boundary = ~use_gn
-        else:
-            # ceres-style LM damping on every diagonal
-            d_blocks = h_pp + torch.diag_embed(
-                diag_p / radius[:, None, None] + cfg.diag_eps)
-            c_reg = c_ww + torch.diag_embed(diag_w / radius[:, None]
-                                            + cfg.diag_eps)
-            dp, dw = arrow_solve(d_blocks, off_scale, b_pw, c_reg, g_p, g_w,
-                                 prec)
-
-        params_new = params + dp
-        if cfg.freeze_scale:
-            params_new = torch.cat([params[..., :1], params_new[..., 1:]], -1)
-        else:  # backstop clamp
-            params_new = torch.cat(
-                [torch.clamp(params_new[..., :1], SCALE_MIN, SCALE_MAX),
-                 params_new[..., 1:]], -1)
-        dp = params_new - params  # actual step after projection
-        w_new = w + dw
-        asm_new = None
-        if cfg.fused_cost:
-            asm_new, cost_new = normal_eq(params_new, w_new, kp, r0, pair_w,
+        def trial(params, w):
+            if cfg.fused_cost:
+                asm_new, cost = normal_eq(params, w, kp, r0, pair_w,
                                           with_cost=True)
-        else:
-            cost_new = cost_fn(params_new, w_new, kp, r0, pair_w)
+                return cost, asm_new
+            return cost_fn(params, w, kp, r0, pair_w), None
 
-        # model decrease from the undamped quadratic
-        hd, hd_w = hmul(dp, dw)
-        gd = window_dot(g_p, dp) + window_dot(g_w, dw)
-        dhd = window_dot(hd, dp) + window_dot(hd_w, dw)
-        model_decrease = -gd - 0.5 * dhd
-        rho = (state.cost - cost_new) / torch.clamp(model_decrease, min=1e-30)
-        valid = torch.isfinite(cost_new) & (model_decrease > 0)
-
-        if cfg.dogleg:
-            accept = valid & (state.cost - cost_new > 0)
-            step_norm = torch.sqrt(window_dot(dp, dp) + window_dot(dw, dw))
-            new_radius = torch.where(
-                rho < 0.25, 0.25 * step_norm,
-                torch.where((rho > 0.75) & boundary, 2.0 * radius, radius))
-            new_radius = torch.clamp(new_radius, 1e-12, 1e10)
-            decrease_factor = state.decrease_factor
-        else:
-            accept = valid & (rho > cfg.min_rel_decrease)
-            grow = radius / torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3,
-                                        min=1.0 / 3.0)
-            shrink = radius / state.decrease_factor
-            new_radius = torch.clamp(torch.where(accept, grow, shrink),
-                                     1e-32, 1e16)
-            decrease_factor = torch.where(
-                accept, torch.full_like(radius, 2.0),
-                state.decrease_factor * 2.0)
-
-        f_conv = torch.abs(state.cost - cost_new) <= cfg.ftol * state.cost
-        converged = state.converged | (accept & f_conv)
-        if cfg.dogleg:
-            # accept-any-decrease rejects every trial AT an optimum: also
-            # converge when the radius collapses to parameter tolerance
-            x_norm = torch.sqrt(window_dot(params, params) + window_dot(w, w))
-            converged = converged | (new_radius <= 1e-8 * (x_norm + 1e-8))
-        do_move = accept & ~state.converged
-        frozen = state.converged
-
-        new_state = MultiFrameState(
-            params=torch.where(_per_window(do_move, params), params_new, params),
-            shape=torch.where(_per_window(do_move, w), w_new, w),
-            radius=torch.where(frozen, radius, new_radius),
-            decrease_factor=torch.where(frozen, state.decrease_factor,
-                                        decrease_factor),
-            cost=torch.where(do_move, cost_new, state.cost),
-            converged=converged,
-            n_accepted=state.n_accepted + do_move.to(torch.int32),
-            iters_run=state.iters_run + (~frozen).to(torch.int32),
-        )
-        if asm_new is not None:
-            asm_new = tuple(torch.where(_per_window(do_move, old), new, old)
-                            for old, new in zip(asm, asm_new))
-        return new_state, asm_new, new_state.cost
+        return trust_region_trip(cfg, state, h_pp, c_ww, g_p, g_w,
+                                 solve=solve, hmul=hmul, dot=_window_pair_dot,
+                                 trial=trial, asm=asm)
 
     def fit(params0, shape0, kp, r0, frame_valid=None):
         with span("multi_frame.fit"):
@@ -509,12 +561,6 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
         frame_valid = (torch.ones((n_win, f_dim), dtype=dtype, device=device)
                        if frame_valid is None else to(frame_valid))
         pair_w = frame_valid[:, :-1] * frame_valid[:, 1:]
-        # dogleg radius scales with the VALID frame count, so padded and
-        # unpadded solves of the same real frames follow one trajectory
-        n_valid = torch.clamp(torch.sum(frame_valid, dim=-1), min=1.0)
-        radius0 = (cfg.dogleg_init_radius * torch.sqrt(n_valid) if cfg.dogleg
-                   else torch.full((n_win,), cfg.init_radius, dtype=dtype,
-                                   device=device))
         asm = None
         if cfg.fused_cost:
             asm, cost0 = normal_eq(params0, shape0, kp, r0, pair_w,
@@ -526,14 +572,7 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
             prec = block_preconditioner(
                 asm if asm is not None
                 else normal_eq(params0, shape0, kp, r0, pair_w))
-        zeros_i = torch.zeros(n_win, dtype=torch.int32, device=device)
-        state = MultiFrameState(
-            params=params0, shape=shape0, radius=radius0,
-            decrease_factor=torch.full((n_win,), 2.0, dtype=dtype,
-                                       device=device),
-            cost=cost0,
-            converged=torch.zeros(n_win, dtype=torch.bool, device=device),
-            n_accepted=zeros_i, iters_run=zeros_i)
+        state = start_state(cfg, params0, shape0, cost0, frame_valid)
         # post-exit slots hold the final cost, so loss curves stay flat
         hist = cost0[:, None].repeat(1, cfg.max_iters)
         it = 0
@@ -541,8 +580,8 @@ def build_multi_fitter(spec: SkeletonSpec, cam: Camera, cfg: MultiFrameConfig,
             with span("multi_frame.trip"):
                 if not cfg.fused_cost:
                     asm = normal_eq(state.params, state.shape, kp, r0, pair_w)
-                state, asm, cost = step(state, kp, r0, pair_w, asm, prec)
-                hist[:, it:] = cost[:, None]
+                state, asm = step(state, kp, r0, pair_w, asm, prec)
+                hist[:, it:] = state.cost[:, None]
             it += 1
         result = MultiFrameResult(*state, cost_history=hist)
         if unbatched:

@@ -250,6 +250,39 @@ def test_lm_mesh_invariance_and_exact_parity(golden, lm_runs, n):
         assert calls["all_reduce"] < 2.5 * CG_ITERS * LM_ITERS
 
 
+@pytest.mark.parametrize("n", [1, 2])
+def test_lm_damped_mode_matches_one_device(golden, n):
+    """``dogleg=False``, the ceres-style damped mode, through the sharded
+    LM on 1 and 2 ranks: every rank holds the same bits, and the fit
+    reaches the exact one-device fitter's with the same config and the
+    JAX package's sharded LM in the same mode on 4 devices."""
+    cfg = MultiFrameConfig(max_iters=LM_ITERS, dogleg=False, **CFG)
+    args = lm_inputs()
+    outs = run_lm(n, cfg, args)
+    res = outs[0][0]
+    for other, _ in outs[1:]:
+        for a, b in zip(res, other):
+            assert torch.equal(a, b)
+    assert int(res.n_accepted) > 0
+    _, cam, spec = rig()
+    ref = build_multi_fitter(spec, cam, cfg, 10, device="cpu", dtype=F64)(
+        *map(t, args))
+    np.testing.assert_allclose(res.params.numpy(), ref.params.numpy(),
+                               rtol=0, atol=EXACT_ATOL)
+    np.testing.assert_allclose(res.shape.numpy(), ref.shape.numpy(),
+                               rtol=0, atol=EXACT_ATOL)
+    np.testing.assert_allclose(float(res.cost), float(ref.cost),
+                               rtol=EXACT_COST_RTOL)
+    assert int(res.n_accepted) == int(ref.n_accepted)
+    np.testing.assert_allclose(res.params.numpy(), golden["lm_damped_params"],
+                               rtol=0, atol=INVARIANCE_ATOL)
+    np.testing.assert_allclose(float(res.cost), float(golden["lm_damped_cost"]),
+                               rtol=EXACT_COST_RTOL)
+    np.testing.assert_allclose(res.cost_history.numpy(),
+                               golden["lm_damped_cost_history"],
+                               rtol=EXACT_COST_RTOL)
+
+
 def test_lm_cg_rtol_exit(golden, lm_runs):
     """``cg_rtol``: a tight tolerance exit reproduces the fixed trips'
     optimum (the reference's bounds), on 2 ranks; as the JAX package's."""
@@ -337,8 +370,8 @@ def test_frame_dp_matches_unsharded(golden, frame_fit, n, chunk):
 
 def record(path=GOLDEN):
     """The JAX package's results on this file's inputs: the sharded GN
-    step and LM on 4 of the 8 virtual devices, window DP on 2, and the
-    unsharded single-frame fitter."""
+    step and LM (dogleg and damped mode) on 4 of the 8 virtual devices,
+    window DP on 2, and the unsharded single-frame fitter."""
     import jax.numpy as jnp
 
     from smpltpu.constants import init_root_rotation as j_r0
@@ -372,7 +405,8 @@ def record(path=GOLDEN):
     p_s, k_s, r_s = sharded(params, kp, r0)
     res = step(p_s, jnp.asarray(w), k_s, r_s)
     out["gn_params"], out["gn_shape"] = np.asarray(res.params), np.asarray(res.shape)
-    for tag, kw in (("lm", {}), ("lm_rtol", {"cg_rtol": 1e-10})):
+    for tag, kw in (("lm", {}), ("lm_rtol", {"cg_rtol": 1e-10}),
+                    ("lm_damped", {"dogleg": False})):
         fit = j_lm(mesh, spec, cam, JConfig(max_iters=LM_ITERS, **CFG, **kw),
                    10, cg_iters=CG_ITERS, dtype=jnp.float64)
         res = fit(p_s, jnp.asarray(w), k_s, r_s)
